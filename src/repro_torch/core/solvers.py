@@ -1,0 +1,104 @@
+"""One entry point for every routing algorithm: ``solve(net, batch, method=...)``.
+
+Counterpart of ``repro.core.solvers``.  Every algorithm is a
+:class:`Solver`: a callable ``(net, batch, **opts) -> Plan`` registered
+under a short method name.  Ported methods: ``greedy`` (Algorithm 1),
+``greedy_ref`` (the host-driven round loop it is held against) and
+``lazy``; :func:`available` lists exactly what is registered.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Protocol, runtime_checkable
+
+from .network import ComputeNetwork
+from .state import QueueState, Topology
+from .jobs import JobBatch
+from .plan import Plan
+from .shortest_path import closure_build_count
+
+
+@runtime_checkable
+class Solver(Protocol):
+    """A routing algorithm: maps (network, job batch, options) to a Plan."""
+
+    def __call__(self, net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+        ...
+
+
+_REGISTRY: dict[str, Solver] = {}
+
+
+def register(name: str) -> Callable[[Solver], Solver]:
+    """Decorator: register a solver under ``name`` (overwrites silently so
+    downstream code can shadow a built-in with a tuned variant)."""
+
+    def deco(fn: Solver) -> Solver:
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available() -> tuple[str, ...]:
+    """Registered method names, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+def get(name: str) -> Solver:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown solver {name!r}; available: {', '.join(available())}"
+        ) from None
+
+
+def solve(net: ComputeNetwork | Topology, batch: JobBatch,
+          method: str = "greedy", *, state: QueueState | None = None,
+          **opts) -> Plan:
+    """Route a job batch with the named algorithm; always returns a Plan.
+
+    ``net`` may be a :class:`ComputeNetwork` view or an immutable
+    :class:`Topology` with the queue ``state`` passed explicitly.  The
+    plan's ``meta`` records the method name, the wall-clock solve time
+    (``meta["solve_s"]``, ending after the solver's last host sync) and
+    the number of counted closure builds (``meta["closure_builds"]``) on
+    top of whatever the solver itself reports.
+    """
+    if isinstance(net, Topology):
+        net = net.view(state)
+    elif state is not None:
+        raise ValueError("state= is only meaningful with a Topology first arg")
+    fn = get(method)
+    n0 = closure_build_count()
+    t0 = time.perf_counter()
+    plan = fn(net, batch, **opts)
+    if not isinstance(plan, Plan):
+        raise TypeError(f"solver {method!r} returned {type(plan).__name__}, "
+                        "expected Plan")
+    meta = {"method": method, **plan.meta,
+            "solve_s": time.perf_counter() - t0,
+            "closure_builds": closure_build_count() - n0}
+    return dataclasses.replace(plan, meta=meta)
+
+
+# -- built-ins --------------------------------------------------------------
+
+@register("greedy")
+def _solve_greedy(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    from . import greedy
+    return greedy.greedy_route(net, batch, **opts)
+
+
+@register("greedy_ref")
+def _solve_greedy_ref(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    from . import greedy
+    return greedy.greedy_route_ref(net, batch, **opts)
+
+
+@register("lazy")
+def _solve_lazy(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    from . import greedy
+    return greedy.greedy_route(net, batch, lazy=True, **opts)

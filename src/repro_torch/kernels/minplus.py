@@ -1,0 +1,156 @@
+"""Hand-written CUDA kernel for the tropical (min, +) product, and its wrapper.
+
+Counterpart of ``repro.kernels.minplus``: the source
+``csrc/minplus.cu`` replaces both Pallas TPU kernels there
+(``_minplus_kernel_batched`` and ``_minplus_kernel``; the 2-D product is
+the batch-of-one view).  Its header says what bounds it on the card and
+what its design does about that.
+
+The library is built with ``nvcc`` into ``build/kernels/`` under the
+repository root on first use, from the sources in the checkout only, and
+loaded with ``ctypes``.  Nothing is built or imported when this module is
+imported: the CPU tests import it on machines without ``nvcc``.
+
+:func:`minplus_matmul_batched` is the only way in.  On CPU tensors it runs
+the plain version (:func:`repro_torch.kernels.ref.minplus_matmul_ref`); on
+CUDA tensors it launches the kernel or raises.  A failed build or launch
+raises; there is no fallback to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+from . import ref
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "minplus.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lib: ctypes.CDLL | None = None
+_launches = 0
+build_log = ""  # nvcc/ptxas output of the build this process ran, if any
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "min-plus kernel cannot be built")
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/minplus.cu`` (once per source and flag set).
+
+    The library's name carries a hash of the source and the flags, so an
+    edited source is rebuilt; the file is written under a temporary name
+    and renamed, so a concurrent reader never sees a partial library.
+    """
+    global build_log
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libminplus_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+        lib.minplus_batched_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                            ll, ll, ll, ll, ll, ll, vp]
+        lib.minplus_batched_f32.restype = ci
+        lib.minplus_error_string.argtypes = [ci]
+        lib.minplus_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device} vs "
+                         f"{b.device}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"min-plus kernel takes float32, got {a.dtype} x "
+                        f"{b.dtype}")
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"operands must both be [M, K] x [K, N] or "
+                         f"[B, M, K] x [B, K, N], got {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"mismatched shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    if min(a.shape) == 0 or min(b.shape) == 0:
+        raise ValueError(f"empty operand {tuple(a.shape)} x {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("min-plus kernel takes contiguous operands")
+
+
+def minplus_matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[b] = A[b] (min,+) B[b] for f32 [B, M, K] x [B, K, N] (or 2-D
+    [M, K] x [K, N]) contiguous operands on one device.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) and count one launch.
+    """
+    global _launches
+    _check(a, b)
+    if a.device.type == "cpu":
+        return ref.minplus_matmul_ref(a, b)
+    two_d = a.dim() == 2
+    a3 = a.unsqueeze(0) if two_d else a
+    b3 = b.unsqueeze(0) if two_d else b
+    bsz, m, k = a3.shape
+    n = b3.shape[2]
+    if max(bsz, m, k, n) > 2**31 - 1:
+        raise ValueError(f"dimension too large for the kernel: "
+                         f"{tuple(a3.shape)} x {tuple(b3.shape)}")
+    lib = _load()
+    c = torch.empty((bsz, m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.minplus_batched_f32(
+            a3.data_ptr(), b3.data_ptr(), c.data_ptr(), bsz, m, k, n,
+            a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1),
+            c.stride(0), c.stride(1), stream)
+    if code != 0:
+        raise RuntimeError(
+            f"min-plus kernel launch failed ({code}): "
+            f"{lib.minplus_error_string(code).decode()}")
+    _launches += 1
+    return c[0] if two_d else c

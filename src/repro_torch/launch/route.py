@@ -1,0 +1,78 @@
+"""Paper driver: route DNN inference jobs over the evaluation topologies.
+
+  PYTHONPATH=src python -m repro_torch.launch.route --topology us \
+      --jobs vgg19:6,resnet34:2,synthetic:2 --scale 1e-4 \
+      --methods greedy,lazy --seed 0 --device cuda
+
+``--methods`` takes any comma list of registered solver names (see
+``repro_torch.core.solvers.available()``).  ``--device`` defaults to
+``cuda`` and fails without a card; ``--device cpu`` runs the plain
+versions of the kernels on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.core import jobs as J, network as N, solvers
+from repro_torch.configs import registry
+
+
+def build_jobs(spec: str, num_nodes: int, seed: int) -> list[J.InferenceJob]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for part in spec.split(","):
+        name, count = part.split(":")
+        for i in range(int(count)):
+            src, dst = rng.choice(num_nodes, size=2, replace=False)
+            if name == "synthetic":
+                out.append(J.synthetic_job(f"syn-{i}", int(src), int(dst),
+                                           num_layers=24, seed=seed + i,
+                                           flops_scale=2e9, bytes_scale=2e6))
+            else:
+                out.append(registry.get(name).make_job(
+                    f"{name}-{i}", int(src), int(dst)))
+    return out
+
+
+def run(topology: str, jobs_spec: str, scale: float, methods: str, seed: int,
+        verbose: bool = True, device: str = "cuda") -> dict:
+    net, names = (N.small_topology(capacity_scale=scale, device=device)
+                  if topology == "small"
+                  else N.us_backbone(capacity_scale=scale, device=device))
+    jobs = build_jobs(jobs_spec, net.num_nodes, seed)
+    batch = J.batch_jobs(jobs, device=device)
+    out = {"topology": topology, "scale": scale, "J": len(jobs)}
+
+    for method in (m.strip() for m in methods.split(",") if m.strip()):
+        plan = solvers.solve(net, batch, method=method)
+        sim = plan.simulate(net, batch)
+        out[f"{method}_s"] = plan.meta["solve_s"]
+        out[f"{method}_bound"] = plan.bound()
+        out[f"{method}_sim"] = sim.makespan
+        if verbose:
+            print(f"[{method}] bound {plan.bound():.3f}s "
+                  f"sim {sim.makespan:.3f}s "
+                  f"({plan.meta['solve_s']:.2f}s to solve, "
+                  f"{plan.meta['kernel_launches']} kernel launches)")
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--topology", default="small", choices=["small", "us"])
+    ap.add_argument("--jobs", default="vgg19:2,resnet34:6")
+    ap.add_argument("--scale", type=float, default=1e-4)
+    ap.add_argument("--methods", default="greedy,lazy",
+                    help="comma list of registered solvers "
+                         f"(available: {','.join(solvers.available())})")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args()
+    run(args.topology, args.jobs, args.scale, args.methods, args.seed,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()
