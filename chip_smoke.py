@@ -20,7 +20,27 @@ Phases, each of which fails the run by exception:
   4. time the kernel, its plain version, one closure and one greedy solve
      (median of repeated runs, after warm-up; CUDA events, host clock for
      the solve), and profile one greedy solve with ``torch.profiler``
-     (device busy time by kernel, idle share).
+     (device busy time by kernel, idle share);
+  5. hold the flash-attention kernel (``csrc/flash_fwd.cu``, both entry
+     points) against its plain version on the card, at the prefill's
+     shape ([36, 2048, 64] bf16), at float32 shapes with d = dv and
+     d != dv, at ragged and short lengths, causal and not;
+  6. drive the serving path's prefill: ``make_prefill_step`` on
+     smollm-135m at full width (random weights from seed 0), float32 with
+     TF32 off at B=2, S=512 with attn_impl="flash" against "xla"; then
+     bfloat16 at B=4, S=2048 with every launch counter set to 0 just
+     before and read just after (one flash launch per layer);
+  7. drive ``DecodeEngine`` at full width (bf16, 4 prompts x 128 tokens,
+     32 generated): the flash prefill's last logits against a
+     ``serve_step`` loop, and both prefill modes' tokens equal;
+  8. drive ``launch/serve.py``'s main path on the card (the routed plan
+     through the min-plus kernel, the decode engine), its plan equal to
+     the CPU port's bit for bit;
+  9. time the flash kernel, its plain version and
+     ``F.scaled_dot_product_attention`` (the library yardstick, never
+     called by the port) at the prefill's shape, the prefill step and
+     decode, and profile one prefill and one decode step with
+     ``torch.profiler``.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -30,7 +50,10 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -54,6 +77,7 @@ QUICKSTART_ORDER = [3, 4, 6, 5, 7, 2, 0, 1]
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -122,36 +146,296 @@ def event_ms(fn, *, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def profile_solve(solvers, net, batch) -> None:
-    """Device-time breakdown of one warm greedy solve (torch.profiler):
-    busy time by kernel name, launches, and the device's idle share."""
+def profile_device(label: str, fn, *, top: int = 8) -> None:
+    """Device-time breakdown of one warm call of ``fn`` (torch.profiler):
+    busy time by kernel name, launches, and the device's idle share.
+    Only events that ran on the card count (operator rows and
+    autograd-function rows repeat the time of the kernels they
+    launched)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solvers.solve(net, batch, method="greedy")
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: operator rows (aten::...) repeat the time
-    # of the kernels they launched
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_time_total", 0) > 0
-               and not e.key.startswith(("aten::", "cuda"))]
+               if e.device_type == DeviceType.CUDA
+               and e.device_time_total > 0]
     busy_us = sum(e.device_time_total for e in kernels)
     if busy_us == 0:
-        log("profile: no device time recorded (device breakdown not measured)")
+        log(f"profile of {label}: no device time recorded (device "
+            f"breakdown not measured)")
         return
-    log(f"profile of one greedy solve: wall {wall_us:.0f} us (profiled), "
-        f"device busy {busy_us:.0f} us, idle share "
-        f"{1 - busy_us / wall_us:.3f}, {sum(e.count for e in kernels)} "
-        f"device kernels")
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
-    top += [e for e in kernels if "minplus" in e.key and e not in top]
-    for e in top:
+    log(f"profile of {label}: wall {wall_us:.0f} us (profiled), device "
+        f"busy {busy_us:.0f} us, idle share {1 - busy_us / wall_us:.3f}, "
+        f"{sum(e.count for e in kernels)} device kernels")
+    rows = sorted(kernels, key=lambda e: -e.device_time_total)[:top]
+    rows += [e for e in kernels if ("minplus" in e.key or "flash" in e.key)
+             and e not in rows]
+    for e in rows:
         log(f"  {e.device_time_total:9.0f} us {e.count:6d}x "
-            f"({e.device_time_total / e.count:.2f} us each)  {e.key[:90]}")
+            f"({e.device_time_total / e.count:.2f} us each, "
+            f"{e.device_time_total / busy_us:.1%})  {e.key[:80]}")
+
+
+# -- phases 5-9: the serving path (flash attention, prefill, decode) ---------
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # O; tests/test_kernels.py
+LSE_TOL = 1e-5
+# (bh, S, d, dv, dtype, causal); the first is the prefill's per-layer shape
+FLASH_CASES = [(36, 2048, 64, 64, "bfloat16", True),
+               (8, 256, 64, 64, "float32", True),
+               (2, 256, 192, 128, "float32", True),
+               (4, 1000, 64, 64, "bfloat16", True),
+               (3, 130, 64, 64, "float32", True),
+               (2, 64, 64, 64, "float32", True),
+               (2, 300, 64, 32, "float32", False)]
+
+
+def flash_inputs(rng, bh, s, d, dv, dtype, dev):
+    import torch
+    tdt = getattr(torch, dtype)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(dev, tdt) for shape in ((bh, s, d), (bh, s, d), (bh, s, dv))]
+
+
+def max_err_within(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; raises unless |got - want| <= tol + tol * |want|
+    everywhere (and every value is finite)."""
+    import torch
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or \
+            bool((diff > tol + tol * want.abs()).any()):
+        raise AssertionError(f"{what}: max |diff| {float(diff.max()):.3e} "
+                             f"exceeds tolerance {tol}")
+    return float(diff.max())
+
+
+def flash_bound(bh, s, d, dv, dtype, causal, with_lse):
+    """(bound in ms, "bytes" | "operations") for one flash forward: each
+    input read once, each output written once; the score and P.V
+    products over the (causal) pairs this input has."""
+    item = 2 if dtype == "bfloat16" else 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops_done = 2 * bh * pairs * (d + dv)
+    peak = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_F32_OPS_PER_S
+    bytes_moved = bh * s * (2 * d + 2 * dv) * item + (bh * s * 4
+                                                      if with_lse else 0)
+    t_ops = ops_done / peak * 1e3
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def serving_phases(dev, smi: str) -> list[dict]:
+    """Phases 5-9; returns the two flash entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash, minplus, ref
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+
+    # -- 5. the flash kernel against its plain version ------------------------
+    err = {"flash_fwd_lse": 0.0, "flash_attention_bhsd": 0.0}
+    for bh, s, d, dv, dtype, causal in FLASH_CASES:
+        q, k, v = flash_inputs(rng, bh, s, d, dv, dtype, dev)
+        scale = 1 / math.sqrt(d)
+        o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=causal)
+        want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
+                                                 causal=causal)
+        torch.cuda.synchronize()
+        what = f"flash_fwd_lse {dtype} [{bh},{s},{d}->{dv}] causal={causal}"
+        e_o = max_err_within(o, want_o, FLASH_TOL[dtype], what + " O")
+        e_l = max_err_within(lse, want_lse, LSE_TOL, what + " lse")
+        err["flash_fwd_lse"] = max(err["flash_fwd_lse"], e_o, e_l)
+        log(f"{what}: max |O - plain| {e_o:.3e}, max |lse - plain| "
+            f"{e_l:.3e}")
+        if (s, dtype) in ((2048, "bfloat16"), (256, "float32"),
+                          (1000, "bfloat16")) and d == dv:
+            o2 = flash.flash_attention_bhsd(q, k, v, scale=scale,
+                                            causal=causal)
+            torch.cuda.synchronize()
+            e2 = max_err_within(o2, want_o, FLASH_TOL[dtype],
+                                f"flash_attention_bhsd {dtype} [{bh},{s}]")
+            err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e2)
+            log(f"  no-lse entry point at [{bh},{s},{d}]: max |O - plain| "
+                f"{e2:.3e}")
+
+    # -- 6. full-width smollm-135m prefill ------------------------------------
+    full = registry.config("smollm_135m")
+    gen = torch.Generator().manual_seed(0)
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, attn_impl="flash")
+    params32 = M.init_params(cfg32, gen, device=dev)
+    log(f"smollm-135m at full width: {M.param_count(params32):,} params")
+    toks = rng.integers(0, full.vocab_size, (2, 512))
+    flash_step = steps.make_prefill_step(cfg32, device=dev)
+    xla_step = steps.make_prefill_step(
+        dataclasses.replace(cfg32, attn_impl="xla"), device=dev)
+    flash.reset_launch_count()
+    got = flash_step(params32, {"tokens": toks})
+    want = xla_step(params32, {"tokens": toks})
+    torch.cuda.synchronize()
+    if flash.launch_count() != full.num_layers:
+        raise AssertionError(f"float32 prefill: {flash.launch_count()} flash "
+                             f"launches, expected {full.num_layers}")
+    if got.shape != (2, 512, full.padded_vocab):
+        raise AssertionError(f"prefill logits shape {tuple(got.shape)}")
+    e32 = max_err_within(got, want, 3e-4, "float32 prefill flash vs xla")
+    log(f"float32 prefill B=2 S=512 (TF32 off): flash vs xla logits max "
+        f"|diff| {e32:.3e} (tolerance 3e-4)")
+    del params32, got, want
+
+    cfg = dataclasses.replace(full, attn_impl="flash")       # bfloat16
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    step = steps.make_prefill_step(cfg, device=dev)
+    batch = {"tokens": rng.integers(0, full.vocab_size, (4, 2048))}
+    step(params, batch)                                      # warm-up
+    torch.cuda.synchronize()
+    for mod in (minplus, flash):
+        mod.reset_launch_count()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    launches = flash.launch_count()
+    no_lse_launches = flash.launch_count("flash_attention_bhsd")
+    log(f"bf16 prefill B=4 S=2048 (the serving path): {launches} "
+        f"flash_fwd_lse launches, {no_lse_launches} no-lse launches, "
+        f"{minplus.launch_count()} min-plus launches")
+    if launches != full.num_layers:
+        raise AssertionError(f"bf16 prefill: {launches} flash launches, "
+                             f"expected {full.num_layers}")
+    if logits.shape != (4, 2048, full.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 prefill logits not finite or misshapen")
+    del logits
+
+    # -- 7. DecodeEngine at full width ----------------------------------------
+    prompts = rng.integers(0, full.vocab_size, (4, 128)).astype(np.int32)
+    flash.reset_launch_count()
+    last = step(params, {"tokens": prompts})[:, -1]
+    serve_step = steps.make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, 4, 128, device=dev)
+    ptoks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    for i in range(128):
+        dec, cache = serve_step(params, cache,
+                                {"tokens": ptoks[:, i:i + 1], "pos": i})
+    torch.cuda.synchronize()
+    if flash.launch_count() != full.num_layers:
+        raise AssertionError("prefill at S=128 did not take the flash path")
+    diff = (dec - last).abs()
+    if bool((diff > 0.11 + 0.05 * last.abs()).any()):
+        raise AssertionError(f"decode vs flash prefill: max |diff| "
+                             f"{float(diff.max()):.3e} beyond atol 0.11, "
+                             f"rtol 0.05")
+    log(f"bf16 serve_step loop vs flash prefill, last position: max |diff| "
+        f"{float(diff.max()):.3e} (atol 0.11, rtol 0.05)")
+    engine = DecodeEngine(cfg, params, max_len=128 + 32 + 8, device=dev)
+    res = engine.generate(prompts, gen_len=32)
+    res_pt = engine.generate(prompts, gen_len=32, prefill_mode="per_token")
+    if not np.array_equal(res.tokens, res_pt.tokens):
+        raise AssertionError("prefill modes emit different tokens")
+    if res.tokens.shape != (4, 32) or not (
+            (res.tokens >= 0) & (res.tokens < full.padded_vocab)).all():
+        raise AssertionError("generated tokens out of range")
+    log(f"DecodeEngine 4 x (128 + 32) bf16: prefill {res.prefill_s:.3f} s, "
+        f"decode {res.decode_s:.3f} s, {res.tokens_per_s:.1f} tok/s; "
+        f"per_token mode: {res_pt.tokens_per_s:.1f} tok/s, same tokens")
+
+    # -- 8. launch/serve.py's main path on the card ---------------------------
+    for mod in (minplus, flash):
+        mod.reset_launch_count()
+    _, plans, sres = serve.run("smollm_135m", requests=4, gen=16,
+                               device=dev, verbose=False)
+    torch.cuda.synchronize()
+    serve_minplus = minplus.launch_count()
+    if serve_minplus == 0:
+        raise AssertionError("serve.py's routed plan never launched min-plus")
+    _, cpu_plans, _ = serve.run("smollm_135m", requests=4, gen=1,
+                                device="cpu", verbose=False)
+    for a, b in zip(plans, cpu_plans):
+        if (a.priority, a.bound_s, a.nodes_used) != \
+                (b.priority, b.bound_s, b.nodes_used):
+            raise AssertionError(f"serve plan card vs CPU: {a} != {b}")
+    log(f"serve.py on the card: {len(plans)} placements == CPU port's bit "
+        f"for bit, {serve_minplus} min-plus launches, "
+        f"{sres.tokens_per_s:.1f} tok/s (smoke config)")
+
+    # -- 9. timings -----------------------------------------------------------
+    bh, s, d = 36, 2048, 64
+    q, k, v = flash_inputs(rng, bh, s, d, d, "bfloat16", dev)
+    scale = 1 / math.sqrt(d)
+    t = {
+        "flash_fwd_lse": event_ms(lambda: flash.flash_fwd_lse(
+            q, k, v, scale=scale), reps=10, inner=10),
+        "flash_attention_bhsd": event_ms(lambda: flash.flash_attention_bhsd(
+            q, k, v, scale=scale), reps=10, inner=10),
+        "plain": event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
+                          reps=5, inner=3),
+        "sdpa": event_ms(lambda: F.scaled_dot_product_attention(
+            *(x.unflatten(0, (4, -1)) for x in (q, k, v)),   # [B, H, S, d]
+            is_causal=True, scale=scale), reps=10, inner=10),
+    }
+    prefill_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    bound = {e: flash_bound(bh, s, d, d, "bfloat16", True,
+                            e == "flash_fwd_lse") for e in err}
+    log(f"timings on {smi}:")
+    for e in err:
+        log(f"  {e} [{bh},{s},{d}] bf16 causal: {t[e] * 1e3:.1f} us per "
+            f"call; bound {bound[e][0] * 1e3:.2f} us ({bound[e][1]})")
+    log(f"  plain version: {t['plain'] * 1e3:.1f} us; "
+        f"F.scaled_dot_product_attention (library yardstick): "
+        f"{t['sdpa'] * 1e3:.1f} us")
+    log(f"  prefill step smollm-135m B=4 S=2048 bf16: median "
+        f"{statistics.median(prefill_ms):.2f} ms over 5 (min "
+        f"{min(prefill_ms):.2f}, max {max(prefill_ms):.2f}); "
+        f"{launches} flash launches per prefill, "
+        f"{launches * t['flash_fwd_lse']:.2f} ms of them by the kernel's "
+        f"time per call")
+    log(f"  decode (DecodeEngine, 4 x 32 tokens after 128): "
+        f"{res.tokens_per_s:.1f} tok/s")
+    dcache = M.init_cache(cfg, 4, 168, device=dev)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    try:
+        profile_device("one prefill (B=4, S=2048, bf16)",
+                       lambda: step(params, batch), top=10)
+        profile_device("one decode step (B=4, bf16)", lambda: serve_step(
+            params, dcache, {"tokens": tok, "pos": 128}), top=6)
+    except RuntimeError as exc:     # a profiler that cannot trace here
+        log(f"profile: not measured ({exc})")
+
+    return [{
+        "name": e,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "replaces": ("src/repro/kernels/flash.py:125 (_flash_fwd_lse_kernel, "
+                     "flash_fwd_lse at :259)" if e == "flash_fwd_lse" else
+                     "src/repro/kernels/flash.py:35 (_flash_kernel, "
+                     "flash_attention_bhsd at :85; not on the serving path)"),
+        "launches": launches if e == "flash_fwd_lse" else no_lse_launches,
+        "max_abs_err": err[e],
+        "ms": t[e],
+        "plain_ms": t["plain"],
+        "bound_ms": bound[e][0],
+        "bound_by": bound[e][1],
+        "library_ms": t["sdpa"],
+    } for e in err]
+
 
 
 def main() -> int:
@@ -163,7 +447,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import registry
     from repro_torch.core import jobs as J, network as N, schedule, solvers
-    from repro_torch.kernels import minplus, ops, ref
+    from repro_torch.kernels import flash, minplus, ops, ref
 
     dev = torch.device("cuda")
 
@@ -176,11 +460,15 @@ def main() -> int:
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
-    lib_path = minplus.build()
-    log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in minplus.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        libs = [pool.submit(mod.build) for mod in (minplus, flash)]
+        lib_paths = [f.result() for f in libs]
+    log(f"built {', '.join(p.name for p in lib_paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for mod in (minplus, flash):
+        for line in mod.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # -- 2. the kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
@@ -309,9 +597,12 @@ def main() -> int:
         f"launches per solve")
 
     try:
-        profile_solve(solvers, net, batch)
+        profile_device("one greedy solve",
+                       lambda: solvers.solve(net, batch, method="greedy"))
     except RuntimeError as err:     # a profiler that cannot trace here
         log(f"profile: not measured ({err})")
+
+    flash_entries = serving_phases(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "minplus_matmul_batched",
@@ -327,7 +618,7 @@ def main() -> int:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }]}), flush=True)
+    }] + flash_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

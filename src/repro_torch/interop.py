@@ -1,10 +1,10 @@
 """Build the port's objects from plain numpy arrays and JSON.
 
-This system has no weights; what is carried across from the JAX package
-(or from anywhere else) is network state, job batches and plans.  These
-constructors take exactly the arrays the reference's objects hold
-(``np.asarray`` of each field), so a test can hand both packages the same
-inputs.  Plans cross over through the shared JSON form of
+What is carried across from the JAX package (or from anywhere else) is
+network state, job batches, plans and LM weights.  These constructors
+take exactly the arrays the reference's objects hold (``np.asarray`` of
+each field), so a test can hand both packages the same inputs.  Plans
+cross over through the shared JSON form of
 ``Plan.to_dict``/``Plan.from_dict``.
 """
 from __future__ import annotations
@@ -37,6 +37,28 @@ def batch_from_numpy(src, dst, comp, data, num_layers, *,
                       for x, dt in ((src, np.int32), (dst, np.int32),
                                     (comp, np.float32), (data, np.float32),
                                     (num_layers, np.int32))))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg, *,
+                         device: str | torch.device) -> dict:
+    """The port's LM params from the reference's param pytree as numpy.
+
+    ``tree`` is ``{"blocks": {"attn": {wq, wk, wv, wo}, "ln1", "ln2",
+    "mlp": {w_up, w_gate, w_down}} stacked [L, ...], "embed": {"tok"[,
+    "head"]}, "ln_f"}`` with numpy leaves.  bfloat16 weights cross as
+    float32 arrays that hold bfloat16 values (numpy has no bfloat16
+    without ``ml_dtypes``); every leaf is cast to ``cfg.dtype``, which is
+    lossless for those.
+    """
+    dev = resolve_device(device)
+
+    def convert(x):
+        if isinstance(x, Mapping):
+            return {k: convert(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x, np.float32)).to(
+            device=dev, dtype=cfg.dtype)
+
+    return convert(tree)
 
 
 def plan_from_dict(d: Mapping[str, Any], *,

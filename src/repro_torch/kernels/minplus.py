@@ -19,18 +19,14 @@ raises; there is no fallback to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
 from . import ref
+from ._build import build_library
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "minplus.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,39 +45,13 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                       "min-plus kernel cannot be built")
-
-
 def build() -> pathlib.Path:
-    """Compile ``csrc/minplus.cu`` (once per source and flag set).
-
-    The library's name carries a hash of the source and the flags, so an
-    edited source is rebuilt; the file is written under a temporary name
-    and renamed, so a concurrent reader never sees a partial library.
-    """
+    """Compile ``csrc/minplus.cu`` (once per source and flag set; see
+    :func:`repro_torch.kernels._build.build_library`)."""
     global build_log
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libminplus_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)
+    out, log = build_library(SOURCE, NVCC_FLAGS, "minplus")
+    if log:
+        build_log = log
     return out
 
 

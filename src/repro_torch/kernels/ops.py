@@ -1,17 +1,18 @@
-"""Public min-plus operations on tensors of any device.
+"""Public min-plus and attention operations on tensors of any device.
 
-Counterpart of ``repro.kernels.ops`` (``minplus_matmul`` and
-``minplus_closure``; flash attention is a later slice).  There is no size
-threshold as in the reference's ``_PALLAS_MIN_DIM``: the device decides.
-Every product on CUDA tensors goes through the hand-written kernel
-(:func:`repro_torch.kernels.minplus.minplus_matmul_batched`), whatever its
-size; a CPU tensor takes the kernel's plain version inside that wrapper.
+Counterpart of ``repro.kernels.ops`` (``minplus_matmul``,
+``minplus_closure`` and the forward of ``flash_attention``).  There is no
+size threshold as in the reference's ``_PALLAS_MIN_DIM``: the device
+decides.  Every product on CUDA tensors goes through the hand-written
+kernels (:func:`repro_torch.kernels.minplus.minplus_matmul_batched`,
+:func:`repro_torch.kernels.flash.flash_fwd_lse`), whatever its size; a CPU
+tensor takes the kernel's plain version inside those wrappers.
 """
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import flash, ref
 from .minplus import minplus_matmul_batched
 
 
@@ -51,3 +52,32 @@ def minplus_closure(w: torch.Tensor) -> torch.Tensor:
     for _ in range(closure_steps(w.shape[-1])):
         d = minplus_matmul(d, d)
     return d
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal flash attention whose forward is the flash kernel; the
+    backward (the reference's ``flash_bwd``) is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, _ = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        raise NotImplementedError(
+            "the flash attention backward (flash_bwd) is not ported yet: "
+            "ROADMAP Queue 2 item 4")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """Causal flash attention on contiguous [BH, S, d] q/k and [BH, S, dv] v
+    (see :mod:`repro_torch.kernels.flash`).
+
+    Forward only: differentiating it raises ``NotImplementedError`` rather
+    than differentiating the plain version.  The reference's ``bq``/``bk``
+    are the TPU's tiling, not part of the function, and have no
+    counterpart here.
+    """
+    return _FlashAttention.apply(q, k, v, float(scale))

@@ -26,13 +26,19 @@ def build_jobs(spec: str, num_nodes: int, seed: int) -> list[J.InferenceJob]:
         name, count = part.split(":")
         for i in range(int(count)):
             src, dst = rng.choice(num_nodes, size=2, replace=False)
-            if name == "synthetic":
+            if name in registry.PAPER_MODELS:
+                out.append(registry.get(name).make_job(
+                    f"{name}-{i}", int(src), int(dst)))
+            elif name == "synthetic":
                 out.append(J.synthetic_job(f"syn-{i}", int(src), int(dst),
                                            num_layers=24, seed=seed + i,
                                            flops_scale=2e9, bytes_scale=2e6))
             else:
-                out.append(registry.get(name).make_job(
-                    f"{name}-{i}", int(src), int(dst)))
+                comp, data = registry.cost_profile(name, seq_len=2048,
+                                                   batch=1)
+                out.append(J.InferenceJob(f"{name}-{i}", int(src), int(dst),
+                                          comp.astype(np.float32),
+                                          data.astype(np.float32)))
     return out
 
 

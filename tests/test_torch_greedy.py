@@ -151,7 +151,7 @@ def test_registry_lists_only_ported_solvers():
     with pytest.raises(ValueError, match="available: greedy, greedy_ref, lazy"):
         tsolve(tnet, tbatch, method="sa")
     with pytest.raises(KeyError, match="ported"):
-        troute.build_jobs("smollm_135m:1", 5, 0)
+        troute.build_jobs("gemma3_1b:1", 5, 0)
 
 
 @pytest.mark.parametrize("seed,num_jobs,with_queues", [

@@ -18,8 +18,12 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.interop\n"
             "import repro_torch.launch.route, repro_torch.kernels.ops\n"
+            "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+            "import repro_torch.kernels.flash, repro_torch.models\n"
+            "import repro_torch.serving.engine\n"
+            "import repro_torch.serving.scheduler, repro_torch.costs.lm\n"
             "import repro_torch.configs.registry as r\n"
-            "[r.get(a) for a in r.PAPER_MODELS]\n"
+            "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.', 'jaxlib'))]\n"
             "assert not bad, bad\n")
@@ -44,11 +48,15 @@ def test_sources_never_import_jax_or_reference():
 
 def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from repro_torch import interop
+    from repro_torch.configs import registry
     from repro_torch.core import Plan, jobs, network
-    from repro_torch.launch import route
+    from repro_torch.launch import route, serve, steps
+    from repro_torch.models import model
+    from repro_torch.serving.engine import DecodeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     job = jobs.synthetic_job("j", 0, 1, 3)
+    cfg = registry.smoke_config("smollm_135m")
     calls = [
         lambda: network.make_network(2, [(0, 1, 1.0)], [1.0, 1.0]),
         lambda: network.small_topology(),
@@ -60,6 +68,14 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
                                            device="cuda"),
         lambda: route.run("small", "resnet34:1", 1e-3, "greedy", 0,
                           verbose=False),
+        lambda: serve.run("smollm_135m", 1, 1, verbose=False),
+        lambda: serve.default_cluster(),
+        lambda: DecodeEngine(cfg, {}),
+        lambda: steps.make_prefill_step(cfg),
+        lambda: steps.make_serve_step(cfg),
+        lambda: model.init_params(cfg, torch.Generator()),
+        lambda: model.init_cache(cfg, 1, 4),
+        lambda: interop.lm_params_from_numpy({}, cfg, device="cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
