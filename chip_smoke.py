@@ -40,7 +40,25 @@ Phases, each of which fails the run by exception:
      ``F.scaled_dot_product_attention`` (the library yardstick, never
      called by the port) at the prefill's shape, the prefill step and
      decode, and profile one prefill and one decode step with
-     ``torch.profiler``.
+     ``torch.profiler``;
+ 10. hold the flash backward kernels (``csrc/flash_bwd.cu``: dq, dk/dv)
+     against their plain version on the card, at the training shape
+     ([36, 2048, 64] bf16), at float32 shapes with d = dv and d != dv
+     (192 -> 128), at ragged and short lengths, causal and not;
+ 11. drive the training path at smollm-135m's full width (random weights
+     from seed 0): float32 with TF32 off at B=2, S=512, loss and grads
+     with attn_impl="flash" against "xla"; then five bfloat16
+     ``make_train_step`` steps at B=4, S=2048 on ``SyntheticStream``
+     batches, with every launch counter set to 0 just before and read
+     just after (per step 60 forward launches -- forward and remat
+     recompute -- and 30 of each backward kernel); then
+     ``launch/train.py``'s ``train(preset="full")`` killed by its failure
+     injector and resumed from its checkpoint, against an uninterrupted
+     run;
+ 12. time the backward kernels, their plain versions and the backward of
+     ``F.scaled_dot_product_attention`` (``autograd.grad`` of a saved
+     forward) at the training shape, the bf16 train step (tokens per
+     second), and profile one SDPA backward and one train step.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -52,6 +70,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -146,6 +165,25 @@ def event_ms(fn, *, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+@functools.cache
+def profiler_works() -> bool:
+    """Whether ``torch.profiler`` can trace the card here, by profiling one
+    trivial operation.  Only this probe's failure is caught: a profile of a
+    real phase runs outside any ``try``, so a kernel that fails to build
+    or launch there fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+    except RuntimeError as exc:
+        log(f"profile: not measured (torch.profiler cannot trace: {exc})")
+        return False
+    return True
+
+
 def profile_device(label: str, fn, *, top: int = 8) -> None:
     """Device-time breakdown of one warm call of ``fn`` (torch.profiler):
     busy time by kernel name, launches, and the device's idle share.
@@ -186,6 +224,13 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # O; tests/test_kernels.py
 LSE_TOL = 1e-5
+# dq, dk, dv against the plain backward, as (atol, rtol): float32 sums over
+# up to S terms in another order; bf16 at most one bf16 rounding of the
+# float32 result apart (one ulp <= 2^-7 |want|), with atol for values
+# near 0.  At [36,2048,64] the gradients are 0.02-0.05, so a dropped key
+# tile or a mis-scaled dS is far outside this; the kernels equal the
+# plain version bit for bit in bf16 on the H100 (PERF.md)
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
 # (bh, S, d, dv, dtype, causal); the first is the prefill's per-layer shape
 FLASH_CASES = [(36, 2048, 64, 64, "bfloat16", True),
                (8, 256, 64, 64, "float32", True),
@@ -203,16 +248,18 @@ def flash_inputs(rng, bh, s, d, dv, dtype, dev):
             .to(dev, tdt) for shape in ((bh, s, d), (bh, s, d), (bh, s, dv))]
 
 
-def max_err_within(got, want, tol: float, what: str) -> float:
-    """Max |got - want|; raises unless |got - want| <= tol + tol * |want|
-    everywhere (and every value is finite)."""
+def max_err_within(got, want, tol: float, what: str,
+                   rtol: float | None = None) -> float:
+    """Max |got - want|; raises unless |got - want| <= tol + rtol * |want|
+    everywhere (rtol defaults to tol), and every value is finite."""
     import torch
+    rtol = tol if rtol is None else rtol
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     if not bool(torch.isfinite(got).all()) or \
-            bool((diff > tol + tol * want.abs()).any()):
+            bool((diff > tol + rtol * want.abs()).any()):
         raise AssertionError(f"{what}: max |diff| {float(diff.max()):.3e} "
-                             f"exceeds tolerance {tol}")
+                             f"exceeds atol {tol} + rtol {rtol} |want|")
     return float(diff.max())
 
 
@@ -411,13 +458,11 @@ def serving_phases(dev, smi: str) -> list[dict]:
         f"{res.tokens_per_s:.1f} tok/s")
     dcache = M.init_cache(cfg, 4, 168, device=dev)
     tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
-    try:
+    if profiler_works():
         profile_device("one prefill (B=4, S=2048, bf16)",
                        lambda: step(params, batch), top=10)
         profile_device("one decode step (B=4, bf16)", lambda: serve_step(
             params, dcache, {"tokens": tok, "pos": 128}), top=6)
-    except RuntimeError as exc:     # a profiler that cannot trace here
-        log(f"profile: not measured ({exc})")
 
     return [{
         "name": e,
@@ -436,6 +481,279 @@ def serving_phases(dev, smi: str) -> list[dict]:
         "library_ms": t["sdpa"],
     } for e in err]
 
+
+# -- phases 10-12: the training path (flash backward, train step) ------------
+
+# (bh, S, d, dv, dtype, causal); the first is the training path's per-layer
+# shape
+BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
+             (8, 256, 64, 64, "float32", True),
+             (2, 256, 192, 128, "float32", True),
+             (4, 1000, 64, 64, "bfloat16", True),
+             (3, 130, 64, 64, "float32", True),
+             (2, 64, 64, 64, "float32", True),
+             (1, 1, 16, 16, "float32", True),
+             (2, 300, 64, 32, "float32", False)]
+# full-width float32 grads, flash against the XLA-style path (TF32 off):
+# per leaf, max |diff| <= GRAD_REL * max |grad| of that leaf -- the same
+# function summed in another order through 30 layers (7.0e-7 on an H100);
+# a wrong kernel is off by O(1)
+LOSS_RTOL, GRAD_REL = 1e-5, 1e-5
+BWD_ENTRIES = ("flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_SHAPE = (36, 2048, 64)    # [B*H, S, hd] of one layer at B=4, S=2048
+
+
+def flash_bwd_bound(bh, s, d, dv, dtype, causal, entry):
+    """(bound in ms, "bytes" | "operations") for one backward kernel: each
+    input (q, k, v, do, lse, delta) read once, each output written once;
+    the products over the (causal) pairs this input has: the dq kernel does
+    Q K^T, dO V^T and dS K (2 (2d + dv) FLOP a pair), the dk/dv kernel
+    Q K^T, dO V^T, P^T dO and dS^T Q (2 (2d + 2dv))."""
+    item = 2 if dtype == "bfloat16" else 4
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    if entry == "flash_bwd_dq":
+        ops_done, out_cols = 2 * pairs * (2 * d + dv), d
+    else:
+        ops_done, out_cols = 2 * pairs * (2 * d + 2 * dv), d + dv
+    bytes_moved = (bh * s * (2 * d + 2 * dv + out_cols) * item
+                   + 2 * bh * s * 4)
+    peak = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_F32_OPS_PER_S
+    t_ops = ops_done / peak * 1e3
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def training_phases(dev, smi: str) -> list[dict]:
+    """Phases 10-12; returns the two backward entries of the kernels line."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash, minplus, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(10)
+
+    def cotangent(bh, s, dv, dtype):
+        return torch.from_numpy(rng.standard_normal(
+            (bh, s, dv), dtype=np.float32)).to(dev, getattr(torch, dtype))
+
+    # -- 10. the backward kernels against their plain version ----------------
+    err = dict.fromkeys(BWD_ENTRIES, 0.0)
+    for bh, s, d, dv, dtype, causal in BWD_CASES:
+        q, k, v = flash_inputs(rng, bh, s, d, dv, dtype, dev)
+        do = cotangent(bh, s, dv, dtype)
+        kw = dict(scale=1 / math.sqrt(d), causal=causal)
+        o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+        delta = ref.flash_bwd_delta(o, do)
+        dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv_ = flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        whole = flash.flash_bwd(q, k, v, o, lse, do, **kw)
+        want_dq = ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+        want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                 **kw)
+        torch.cuda.synchronize()
+        what = f"flash_bwd {dtype} [{bh},{s},{d}->{dv}] causal={causal}"
+        atol, rtol = BWD_TOL[dtype]
+        e_dq = max_err_within(dq, want_dq, atol, what + " dq", rtol)
+        e_dkv = max(max_err_within(dk, want_dk, atol, what + " dk", rtol),
+                    max_err_within(dv_, want_dv, atol, what + " dv", rtol))
+        if not all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv_))):
+            raise AssertionError(f"{what}: flash_bwd differs from its two "
+                                 f"kernels' own launches")
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
+        log(f"{what}: max |dq - plain| {e_dq:.3e}, max |dk, dv - plain| "
+            f"{e_dkv:.3e} (atol {atol}, rtol {rtol}); flash_bwd == its "
+            f"kernels, bit for bit")
+    del q, k, v, do, o, lse, delta, dq, dk, dv_, whole
+
+    # -- 11. the training path at full width ---------------------------------
+    full = registry.config("smollm_135m")
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, attn_impl="flash")
+    params32 = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                             device=dev)
+    batch32 = SyntheticStream(DataConfig(
+        vocab_size=full.vocab_size, seq_len=512, global_batch=2),
+        device=dev).batch_at(0)
+
+    def loss_and_grads(cfg):
+        flat = [x.detach().requires_grad_() for x in pytree.leaves(params32)]
+        loss = M.loss_fn(cfg, pytree.unflatten(params32, flat), batch32)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    flash.reset_launch_count()
+    loss_f, grads_f = loss_and_grads(cfg32)
+    torch.cuda.synchronize()
+    got = [flash.launch_count(e) for e in ("flash_fwd_lse",) + BWD_ENTRIES]
+    want = [2 * full.num_layers, full.num_layers, full.num_layers]
+    if got != want:
+        raise AssertionError(f"float32 loss + grads: launches {got}, "
+                             f"expected {want} (remat on)")
+    loss_x, grads_x = loss_and_grads(dataclasses.replace(cfg32,
+                                                         attn_impl="xla"))
+    torch.cuda.synchronize()
+    rel_loss = abs(float(loss_f) - float(loss_x)) / abs(float(loss_x))
+    if not math.isfinite(float(loss_f)) or rel_loss > LOSS_RTOL:
+        raise AssertionError(f"float32 loss flash {float(loss_f)} vs xla "
+                             f"{float(loss_x)}")
+    worst = 0.0
+    for key, a, b in zip((k for k, _ in pytree.items(params32)), grads_f,
+                         grads_x):
+        scale_b = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        if not bool(torch.isfinite(a).all()) or diff > GRAD_REL * scale_b:
+            raise AssertionError(f"float32 grad {key}: max |flash - xla| "
+                                 f"{diff:.3e} > {GRAD_REL} x {scale_b:.3e}")
+        worst = max(worst, diff / max(scale_b, 1e-30))
+    log(f"float32 loss + grads B=2 S=512 (TF32 off, remat on): loss "
+        f"{float(loss_f):.6f}, flash vs xla rel {rel_loss:.2e} (tolerance "
+        f"{LOSS_RTOL}); worst leaf max |diff| / max |grad| {worst:.2e} "
+        f"(tolerance {GRAD_REL}); launches fwd/dq/dkv {got}")
+    del params32, grads_f, grads_x
+
+    cfg = dataclasses.replace(full, attn_impl="flash")       # bfloat16
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt = steps.default_optimizer(cfg)
+    opt_state = opt.init(params)
+    train_step = steps.make_train_step(cfg, opt, device=dev)
+    data = SyntheticStream(DataConfig(vocab_size=full.vocab_size,
+                                      seq_len=2048, global_batch=4),
+                           device=dev)
+    batches = [data.batch_at(i) for i in range(5)]
+    torch.cuda.synchronize()
+    for mod in (minplus, flash):
+        mod.reset_launch_count()
+    losses = []
+    for b in batches:
+        loss, params, opt_state = train_step(params, opt_state, b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = {e: flash.launch_count(e) for e in
+                ("flash_fwd_lse", "flash_attention_bhsd") + BWD_ENTRIES}
+    losses = [float(x) for x in losses]
+    log(f"bf16 train steps B=4 S=2048 (the training path), 5 steps: "
+        f"launches {launches}, min-plus {minplus.launch_count()}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    per_step = {"flash_fwd_lse": 2 * full.num_layers,
+                "flash_attention_bhsd": 0,
+                "flash_bwd_dq": full.num_layers,
+                "flash_bwd_dkv": full.num_layers}
+    if launches != {e: 5 * n for e, n in per_step.items()}:
+        raise AssertionError(f"train steps: launches {launches}, expected "
+                             f"5 x {per_step}")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - math.log(full.padded_vocab)) > 0.5:
+        raise AssertionError(f"train losses {losses}: not finite, or step 0 "
+                             f"not near ln {full.padded_vocab}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(preset="full", steps=4, batch=2, seq=128, ckpt_every=2,
+                  log_every=1000, device=dev)
+        whole = train.train("smollm_135m", **kw)
+        try:
+            train.train("smollm_135m", ckpt_dir=tmp, fail_at=3, **kw)
+        except RuntimeError as exc:
+            if "injected node failure" not in str(exc):
+                raise
+        else:
+            raise AssertionError("the injected failure did not fire")
+        resumed = train.train("smollm_135m", ckpt_dir=tmp, **kw)
+    rel = abs(resumed.losses[-1] - whole.losses[-1]) / abs(whole.losses[-1])
+    if resumed.resumed_from != 2 or len(resumed.losses) != 2 or rel > 1e-4:
+        raise AssertionError(f"restart: resumed from {resumed.resumed_from}, "
+                             f"losses {resumed.losses} vs {whole.losses}")
+    log(f"train.py full width, 4 steps at B=2 S=128, killed at step 3 and "
+        f"resumed from step {resumed.resumed_from}: final loss "
+        f"{resumed.losses[-1]:.6f} vs uninterrupted {whole.losses[-1]:.6f} "
+        f"(rel {rel:.1e}, tolerance 1e-4)")
+
+    # -- 12. timings ----------------------------------------------------------
+    bh, s, d = TRAIN_SHAPE
+    q, k, v = flash_inputs(rng, bh, s, d, d, "bfloat16", dev)
+    do = cotangent(bh, s, d, "bfloat16")
+    kw = dict(scale=1 / math.sqrt(d))
+    o, lse = flash.flash_fwd_lse(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    t = {"flash_fwd_lse": event_ms(lambda: flash.flash_fwd_lse(q, k, v, **kw),
+                                   reps=5, inner=5),
+         "flash_bwd_dq": event_ms(lambda: flash.flash_bwd_dq(*args, **kw),
+                                  reps=10, inner=5),
+         "flash_bwd_dkv": event_ms(lambda: flash.flash_bwd_dkv(*args, **kw),
+                                   reps=10, inner=5),
+         "plain_dq": event_ms(lambda: ref.flash_bwd_dq_ref(*args, **kw),
+                              reps=5, inner=3),
+         "plain_dkv": event_ms(lambda: ref.flash_bwd_dkv_ref(*args, **kw),
+                               reps=5, inner=3)}
+    q4, k4, v4 = (x.unflatten(0, (4, -1)).detach().requires_grad_()
+                  for x in (q, k, v))                      # [B, H, S, d]
+    do4 = do.unflatten(0, (4, -1))
+
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, **kw)
+
+    def sdpa_bwd():     # the backward alone, from the saved forward
+        return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                   retain_graph=True)
+
+    t["sdpa_bwd"] = event_ms(sdpa_bwd, reps=10, inner=10)
+    step_ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(params, opt_state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_med = statistics.median(step_ms)
+    flash_ms = (2 * full.num_layers * t["flash_fwd_lse"]
+                + full.num_layers * (t["flash_bwd_dq"] + t["flash_bwd_dkv"]))
+    bound = {e: flash_bwd_bound(bh, s, d, d, "bfloat16", True, e)
+             for e in BWD_ENTRIES}
+    log(f"timings on {smi}:")
+    for e in BWD_ENTRIES:
+        plain = t["plain_" + e.rsplit("_", 1)[1]]
+        log(f"  {e} [{bh},{s},{d}] bf16 causal: {t[e] * 1e3:.1f} us per "
+            f"call; bound {bound[e][0] * 1e3:.2f} us ({bound[e][1]}); plain "
+            f"version {plain * 1e3:.1f} us")
+    log(f"  F.scaled_dot_product_attention backward (library yardstick, "
+        f"[4,9,{s},{d}], dq, dk and dv together, autograd.grad of a saved "
+        f"forward): {t['sdpa_bwd'] * 1e3:.1f} us; flash_fwd_lse "
+        f"{t['flash_fwd_lse'] * 1e3:.1f} us")
+    log(f"  train step smollm-135m B=4 S=2048 bf16 (remat): median "
+        f"{step_med:.2f} ms over 5 (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); {4 * 2048 / step_med * 1e3:.0f} tokens/s; "
+        f"flash kernels {flash_ms:.2f} ms of it by their times per call "
+        f"({flash_ms / step_med:.1%})")
+    if profiler_works():
+        profile_device("one SDPA backward (the yardstick)", sdpa_bwd, top=4)
+        profile_device("one train step (B=4, S=2048, bf16)",
+                       lambda: train_step(params, opt_state, batches[0]),
+                       top=12)
+
+    return [{
+        "name": e,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+        "replaces": ("src/repro/kernels/flash.py:170 (_flash_dq_kernel; "
+                     "flash_bwd at :292, pallas_call :300)"
+                     if e == "flash_bwd_dq" else
+                     "src/repro/kernels/flash.py:211 (_flash_dkv_kernel; "
+                     "flash_bwd at :292, pallas_call :320)"),
+        "launches": launches[e],
+        "max_abs_err": err[e],
+        "ms": t[e],
+        "plain_ms": t["plain_" + e.rsplit("_", 1)[1]],
+        "bound_ms": bound[e][0],
+        "bound_by": bound[e][1],
+        "library_ms": t["sdpa_bwd"],
+    } for e in BWD_ENTRIES]
 
 
 def main() -> int:
@@ -460,13 +778,14 @@ def main() -> int:
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
-        libs = [pool.submit(mod.build) for mod in (minplus, flash)]
+    builds = [minplus.build, flash.build, lambda: flash.build("flash_bwd")]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = [pool.submit(b) for b in builds]         # one nvcc each
         lib_paths = [f.result() for f in libs]
     log(f"built {', '.join(p.name for p in lib_paths)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for mod in (minplus, flash):
-        for line in mod.build_log.splitlines():
+    for build_log in (minplus.build_log, *flash.build_log.values()):
+        for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
 
@@ -596,13 +915,12 @@ def main() -> int:
         f"{min(solve_ms):.2f}, max {max(solve_ms):.2f}); {per_solve} kernel "
         f"launches per solve")
 
-    try:
+    if profiler_works():
         profile_device("one greedy solve",
                        lambda: solvers.solve(net, batch, method="greedy"))
-    except RuntimeError as err:     # a profiler that cannot trace here
-        log(f"profile: not measured ({err})")
 
     flash_entries = serving_phases(dev, smi)
+    bwd_entries = training_phases(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "minplus_matmul_batched",
@@ -618,7 +936,7 @@ def main() -> int:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }] + flash_entries}), flush=True)
+    }] + flash_entries + bwd_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

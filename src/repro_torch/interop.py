@@ -1,7 +1,7 @@
 """Build the port's objects from plain numpy arrays and JSON.
 
 What is carried across from the JAX package (or from anywhere else) is
-network state, job batches, plans and LM weights.  These constructors
+network state, job batches, plans, LM weights and AdamW state.  These constructors
 take exactly the arrays the reference's objects hold (``np.asarray`` of
 each field), so a test can hand both packages the same inputs.  Plans
 cross over through the shared JSON form of
@@ -18,6 +18,7 @@ from .core.jobs import JobBatch
 from .core.network import ComputeNetwork
 from .core.plan import Plan
 from .device import resolve_device
+from .pytree import tree_map
 
 
 def network_from_numpy(mu_node, mu_link, q_node, q_link, clock=0.0, *,
@@ -59,6 +60,28 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, *,
             device=dev, dtype=cfg.dtype)
 
     return convert(tree)
+
+
+def lm_params_to_numpy(params: Mapping[str, Any]) -> dict:
+    """The port's LM params as a tree of float32 numpy arrays (bfloat16
+    values are exact in float32), for the reference's ``init_params``
+    tree layout."""
+    return tree_map(lambda x: x.detach().float().cpu().numpy(), dict(params))
+
+
+def adamw_state_from_numpy(tree: Mapping[str, Any], *,
+                           device: str | torch.device) -> dict:
+    """The port's AdamW state from the reference's ``{"m", "v", "step"}``
+    as numpy: float32 moment trees and an int32 scalar step."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    return {"m": tree_map(f32, dict(tree["m"])),
+            "v": tree_map(f32, dict(tree["v"])),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def plan_from_dict(d: Mapping[str, Any], *,

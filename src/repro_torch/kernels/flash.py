@@ -1,21 +1,24 @@
-"""Hand-written CUDA flash-attention forward, and its wrappers.
+"""Hand-written CUDA flash attention, forward and backward, and their wrappers.
 
-Counterpart of ``repro.kernels.flash``'s forward kernels: the source
-``csrc/flash_fwd.cu`` replaces ``_flash_fwd_lse_kernel`` (behind
-:func:`flash_fwd_lse`) and ``_flash_kernel`` (behind
-:func:`flash_attention_bhsd`, the same kernel without the logsumexp
-output).  Its header says what bounds it on the card and what its design
-does about that.  The backward kernels (``flash_bwd``) are not ported yet.
+Counterpart of ``repro.kernels.flash``.  The source ``csrc/flash_fwd.cu``
+replaces ``_flash_fwd_lse_kernel`` (behind :func:`flash_fwd_lse`) and
+``_flash_kernel`` (behind :func:`flash_attention_bhsd`, the same kernel
+without the logsumexp output); ``csrc/flash_bwd.cu`` replaces
+``_flash_dq_kernel`` (behind :func:`flash_bwd_dq`) and
+``_flash_dkv_kernel`` (behind :func:`flash_bwd_dkv`), which
+:func:`flash_bwd` runs one after the other.  Each source's header says
+what bounds it on the card and what its design does about that.
 
-The library is built with ``nvcc`` into ``build/kernels/`` on first use,
-from the sources in the checkout only, and loaded with ``ctypes``; nothing
-is built when this module is imported.  On CPU tensors both wrappers run
-the plain version (:func:`repro_torch.kernels.ref.flash_fwd_lse_ref`); on
-CUDA tensors they launch the kernel or raise.
+Each source is built with ``nvcc`` into its own library under
+``build/kernels/`` on first use, from the sources in the checkout only,
+and loaded with ``ctypes``; nothing is built when this module is
+imported.  On CPU tensors every wrapper runs the plain version
+(:mod:`repro_torch.kernels.ref`); on CUDA tensors it launches the kernel
+or raises.
 
 Unlike the reference, every sequence length S >= 1 is exact: the reference
 tiles S by ``min(512, S)`` and leaves the rows past ``(S // 512) * 512``
-unwritten when 512 does not divide S.
+unwritten when 512 does not divide S, in the forward and the backward.
 """
 from __future__ import annotations
 
@@ -27,20 +30,23 @@ import torch
 from . import ref
 from ._build import build_library
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = {stem: CSRC / f"{stem}.cu" for stem in ("flash_fwd", "flash_bwd")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: ctypes.CDLL | None = None
-_launches = {"flash_fwd_lse": 0, "flash_attention_bhsd": 0}
-build_log = ""  # nvcc/ptxas output of the build this process ran, if any
+_libs: dict[str, ctypes.CDLL] = {}
+_launches = {"flash_fwd_lse": 0, "flash_attention_bhsd": 0,
+             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+build_log: dict[str, str] = {}  # nvcc/ptxas output of this process's builds
 
 
 def launch_count(entry: str = "flash_fwd_lse") -> int:
-    """Kernel launches through ``entry`` (``"flash_fwd_lse"`` or
-    ``"flash_attention_bhsd"``) since the last :func:`reset_launch_count`."""
+    """Kernel launches of ``entry`` (``"flash_fwd_lse"``,
+    ``"flash_attention_bhsd"``, ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``)
+    since the last :func:`reset_launch_count`."""
     return _launches[entry]
 
 
@@ -49,27 +55,34 @@ def reset_launch_count() -> None:
         _launches[entry] = 0
 
 
-def build() -> pathlib.Path:
-    """Compile ``csrc/flash_fwd.cu`` (once per source and flag set)."""
-    global build_log
-    out, log = build_library(SOURCE, NVCC_FLAGS, "flash_fwd")
+def build(stem: str = "flash_fwd") -> pathlib.Path:
+    """Compile ``csrc/<stem>.cu`` (``"flash_fwd"`` or ``"flash_bwd"``;
+    once per source and flag set)."""
+    out, log = build_library(SOURCES[stem], NVCC_FLAGS, stem)
     if log:
-        build_log = log
+        build_log[stem] = log
     return out
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ci, vp = ctypes.c_int, ctypes.c_void_p
-        lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                  ctypes.c_float, ci, vp]
-        lib.flash_fwd.restype = ci
-        lib.flash_error_string.argtypes = [ci]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _load(stem: str) -> ctypes.CDLL:
+    if stem not in _libs:
+        lib = ctypes.CDLL(str(build(stem)))
+        ci, vp, cf = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+        if stem == "flash_fwd":
+            lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      cf, ci, vp]
+            lib.flash_fwd.restype = ci
+            lib.flash_error_string.argtypes = [ci]
+            lib.flash_error_string.restype = ctypes.c_char_p
+        else:
+            lib.flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 5 + [cf, ci, vp]
+            lib.flash_bwd_dq.restype = ci
+            lib.flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 5 + [cf, ci, vp]
+            lib.flash_bwd_dkv.restype = ci
+            lib.flash_bwd_error_string.argtypes = [ci]
+            lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        _libs[stem] = lib
+    return _libs[stem]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -100,7 +113,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q, k, v, scale: float, causal: bool, entry: str):
-    lib = _load()
+    lib = _load("flash_fwd")
     with_lse = entry == "flash_fwd_lse"
     bh, s, d = q.shape
     dv = v.shape[2]
@@ -146,3 +159,95 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
     return _launch(q, k, v, scale, causal, "flash_attention_bhsd")[0]
+
+
+def _check_bwd(q, k, v, do, lse, *, o=None, delta=None) -> None:
+    _check(q, k, v)
+    rows = q.shape[:2]
+    operands = {"do": (do, v.shape, q.dtype),
+                "lse": (lse, rows, torch.float32), "o": (o, v.shape, q.dtype),
+                "delta": (delta, rows, torch.float32)}
+    for name, (x, shape, dtype) in operands.items():
+        if x is None:
+            continue
+        if x.shape != shape or x.dtype != dtype:
+            raise ValueError(f"expected {name} of shape {tuple(shape)} and "
+                             f"dtype {dtype}, got {tuple(x.shape)} {x.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError("flash attention takes contiguous operands")
+
+
+def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs, scale: float,
+                causal: bool) -> None:
+    lib = _load("flash_bwd")
+    bh, s, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            _DTYPE_CODES[q.dtype], bh, s, d, v.shape[2], float(scale),
+            int(causal), stream)
+    if code != 0:
+        raise RuntimeError(f"{entry} kernel launch failed ({code}): "
+                           f"{lib.flash_bwd_error_string(code).decode()}")
+    _launches[entry] += 1
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                 scale: float, causal: bool = True) -> torch.Tensor:
+    """dq [BH, S, d] in q's dtype, from the forward's lse and
+    ``delta = rowsum(do * o)`` (both [BH, S] float32).  CPU tensors take
+    the plain version; CUDA tensors launch the dq kernel (one launch)."""
+    _check_bwd(q, k, v, do, lse, delta=delta)
+    if q.device.type == "cpu":
+        return ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale=scale,
+                                    causal=causal)
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale,
+                causal)
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  *, scale: float, causal: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk [BH, S, d], dv [BH, S, dv]) in q's dtype; operands as for
+    :func:`flash_bwd_dq`.  CUDA tensors launch the dk/dv kernel (one
+    launch)."""
+    _check_bwd(q, k, v, do, lse, delta=delta)
+    if q.device.type == "cpu":
+        return ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale=scale,
+                                     causal=causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+                causal)
+    return dk, dv
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              scale: float, causal: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_fwd_lse`'s O for the cotangent ``do``,
+    from the forward's ``o`` and ``lse``: contiguous q, k [BH, S, d];
+    v, o, do [BH, S, dv] in q's dtype (float32 or bfloat16, d, dv <= 256);
+    lse [BH, S] float32.  The gradients come out in q's dtype.
+
+    ``delta = rowsum(do * o)`` is a float32 torch reduction, as in the
+    reference.  CPU tensors take the plain version; CUDA tensors launch
+    the dq kernel and the dk/dv kernel on the current stream (no
+    synchronisation), one launch each.
+    """
+    _check_bwd(q, k, v, do, lse, o=o)
+    if q.device.type == "cpu":
+        return ref.flash_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                 causal=causal)
+    delta = ref.flash_bwd_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, causal=causal)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
+                               causal=causal))

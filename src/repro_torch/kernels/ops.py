@@ -1,11 +1,12 @@
 """Public min-plus and attention operations on tensors of any device.
 
 Counterpart of ``repro.kernels.ops`` (``minplus_matmul``,
-``minplus_closure`` and the forward of ``flash_attention``).  There is no
-size threshold as in the reference's ``_PALLAS_MIN_DIM``: the device
+``minplus_closure`` and ``flash_attention`` with its backward).  There is
+no size threshold as in the reference's ``_PALLAS_MIN_DIM``: the device
 decides.  Every product on CUDA tensors goes through the hand-written
 kernels (:func:`repro_torch.kernels.minplus.minplus_matmul_batched`,
-:func:`repro_torch.kernels.flash.flash_fwd_lse`), whatever its size; a CPU
+:func:`repro_torch.kernels.flash.flash_fwd_lse`,
+:func:`repro_torch.kernels.flash.flash_bwd`), whatever its size; a CPU
 tensor takes the kernel's plain version inside those wrappers.
 """
 from __future__ import annotations
@@ -55,29 +56,33 @@ def minplus_closure(w: torch.Tensor) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal flash attention whose forward is the flash kernel; the
-    backward (the reference's ``flash_bwd``) is not ported yet."""
+    """Causal flash attention: the forward kernel saves O and the
+    logsumexp, the backward kernels recompute P from them (the
+    reference's ``jax.custom_vjp`` around ``flash_fwd_lse``/``flash_bwd``).
+    """
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o, _ = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
+        o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
         return o
 
     @staticmethod
     def backward(ctx, grad_o):
-        raise NotImplementedError(
-            "the flash attention backward (flash_bwd) is not ported yet: "
-            "ROADMAP Queue 2 item 4")
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash.flash_bwd(q, k, v, o, lse, grad_o.contiguous(),
+                                     scale=ctx.scale, causal=True)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """Causal flash attention on contiguous [BH, S, d] q/k and [BH, S, dv] v
-    (see :mod:`repro_torch.kernels.flash`).
-
-    Forward only: differentiating it raises ``NotImplementedError`` rather
-    than differentiating the plain version.  The reference's ``bq``/``bk``
-    are the TPU's tiling, not part of the function, and have no
-    counterpart here.
+    (see :mod:`repro_torch.kernels.flash`), differentiable: the backward
+    runs :func:`repro_torch.kernels.flash.flash_bwd` (the two backward
+    kernels on CUDA tensors, their plain version on CPU tensors), never
+    autograd of the plain forward.  The reference's ``bq``/``bk`` are the
+    TPU's tiling, not part of the function, and have no counterpart here.
     """
     return _FlashAttention.apply(q, k, v, float(scale))

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.kernels.ref``.  These are the semantic references the
 CUDA kernels (:mod:`repro_torch.kernels.minplus`,
-:mod:`repro_torch.kernels.flash`) are held against on the card, and the
-path a CPU tensor takes.
+:mod:`repro_torch.kernels.flash`, forward and backward) are held against
+on the card, and the path a CPU tensor takes.
 
 Min-plus: each candidate ``a + b`` is one rounded float32 add and ``min``
 is exact, so any correct kernel equals these bit for bit.  Flash
@@ -84,3 +84,57 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool = True) -> torch.Tensor:
     """O of :func:`flash_fwd_lse_ref` (no logsumexp)."""
     return flash_fwd_lse_ref(q, k, v, scale=scale, causal=causal)[0]
+
+
+def _bwd_probs(q, k, v, do, lse, delta, scale, causal):
+    """float32 (q, k, do, p, ds) of the backward kernels: ``p = exp(scale *
+    q k^T - lse)`` with masked scores at -1e30, ``ds = p * (do v^T -
+    delta) * scale``."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        pos = torch.arange(q.shape[-2], device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    return qf, kf, dof, p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, scale: float,
+                     causal: bool = True) -> torch.Tensor:
+    """dq = ds k, cast to q's dtype (the dq kernel's function)."""
+    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, scale, causal)
+    return torch.matmul(ds, kf).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, scale: float,
+                      causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk = ds^T q, dv = p^T do), cast to q's dtype (the dk/dv kernel's
+    function)."""
+    qf, _, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, scale, causal)
+    return (torch.matmul(ds.transpose(-1, -2), qf).to(q.dtype),
+            torch.matmul(p.transpose(-1, -2), dof).to(q.dtype))
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * o) in float32 (the reference's, outside its
+    kernels)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  scale: float, causal: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_fwd_lse_ref`'s O for the cotangent
+    ``do``, in the backward kernels' arithmetic: operands upcast to
+    float32, ``delta = rowsum(do * o)``, ``p = exp(scale * q k^T - lse)``
+    with masked scores at -1e30, ``ds = p * (do v^T - delta) * scale``,
+    ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T do``, each cast to q's
+    dtype."""
+    qf, kf, dof, p, ds = _bwd_probs(q, k, v, do, lse, flash_bwd_delta(o, do),
+                                    scale, causal)
+    return (torch.matmul(ds, kf).to(q.dtype),
+            torch.matmul(ds.transpose(-1, -2), qf).to(q.dtype),
+            torch.matmul(p.transpose(-1, -2), dof).to(q.dtype))

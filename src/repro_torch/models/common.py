@@ -9,10 +9,13 @@ from the reference:
   * layouts at every function are the reference's: activations
     ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ w``.
 
-``maybe_shard``, ``remat_wrap`` and ``cross_attention`` have no
-counterpart yet (sharding, training and the encoder-decoder family come in
-later slices), nor has the ``shard_map`` branch of ``_flash_bshd``: on
-one card the kernel always runs on the whole ``[B*H, S, hd]`` block.
+``remat_wrap`` is ``torch.utils.checkpoint`` for the ``"full"`` policy.
+``maybe_shard`` and ``cross_attention`` have no counterpart yet (sharding
+and the encoder-decoder family come in later slices), nor has the
+``shard_map`` branch of ``_flash_bshd``: on one card the kernel always
+runs on the whole ``[B*H, S, hd]`` block.  Nothing on the training path
+writes in place into a tensor that autograd saved; ``write_kv``'s
+in-place cache write serves decode only.
 """
 from __future__ import annotations
 
@@ -20,10 +23,29 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 
 NEG_INF = -1e30  # the reference's masked-score value
+
+
+def remat_wrap(fn, cfg):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint`` in the reference), for
+    ``cfg.remat_policy == "full"``: ``torch.utils.checkpoint`` without
+    reentrance, so the recompute runs the same flash forward again.
+    The ``"dots"`` policy, which no config uses, raises."""
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (only 'full'); "
+            "ROADMAP Queue 1 item 10")
+
+    def wrapped(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return wrapped
 
 
 def truncated_normal(gen: torch.Generator, shape, dtype: torch.dtype,

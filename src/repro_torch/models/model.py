@@ -1,17 +1,18 @@
 """Unified model API: one config dataclass + family dispatch.
 
 Counterpart of ``repro.models.model`` for the dense family (the serving
-path):
+and training paths):
 
     init_params(cfg, generator, device=)          -> params dict
     prefill_logits(cfg, params, batch)            -> [B, S, vocab] float32
+    loss_fn(cfg, params, batch)                   -> scalar float32 loss
     init_cache(cfg, batch, max_len, device=)      -> KV cache dict
     serve_step(cfg, params, cache, batch)         -> (logits [B, vocab], cache)
 
 ``batch`` is a dict: 'tokens' [B, S] (a tensor on the params' device),
-plus the int 'pos' during decode.  The other families (moe, ssm, hybrid,
-encdec, vlm) raise ``NotImplementedError`` naming their ROADMAP item;
-``loss_fn`` waits for the training slice (ROADMAP Queue 1 item 10).
+plus 'labels' [B, S] for the loss and the int 'pos' during decode.  The
+other families (moe, ssm, hybrid, encdec, vlm) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,10 +31,11 @@ PORTED_FAMILIES = ("dense",)
 class ModelConfig:
     """Every field of the reference's ``ModelConfig``.
 
-    ``dtype`` is a ``torch.dtype``.  On one card and for serving, these
-    fields are accepted and have no effect: ``dp_axes``, ``moe_ep_shard``
-    and ``moe_local_dispatch`` (sharding), ``remat`` and ``remat_policy``
-    (training).  ``scan_layers=False`` computes the same function as
+    ``dtype`` is a ``torch.dtype``.  On one card these fields are
+    accepted and have no effect: ``dp_axes``, ``moe_ep_shard`` and
+    ``moe_local_dispatch`` (sharding).  ``remat`` recomputes each block in
+    the backward (``torch.utils.checkpoint``); ``remat_policy`` takes
+    ``"full"`` only.  ``scan_layers=False`` computes the same function as
     ``True``: both are a loop over the stacked layers here.
     """
 
@@ -126,7 +128,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 def prefill_logits(cfg: ModelConfig, params: dict, batch: dict
                    ) -> torch.Tensor:
     _check_family(cfg)
-    return transformer.forward(cfg, params, batch["tokens"])
+    return transformer.forward(cfg, params, batch["tokens"], remat=cfg.remat)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Causal-LM cross entropy (labels = next tokens, -1 = masked): float32
+    log-softmax over the padded vocab, the mean over unmasked positions."""
+    logits = prefill_logits(cfg, params, batch)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels = labels.clamp(min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

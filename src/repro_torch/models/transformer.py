@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..pytree import tree_map
 from . import common as cm
 
 
@@ -42,12 +43,6 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 def init(gen: torch.Generator, cfg, device: torch.device) -> dict:
     """Random params drawn from ``gen`` on the CPU, then moved to
     ``device``, so a seed gives the same weights on every device."""
@@ -58,7 +53,7 @@ def init(gen: torch.Generator, cfg, device: torch.device) -> dict:
                                tie=cfg.tie_embeddings),
         "ln_f": cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
     }
-    return _to(params, device)
+    return tree_map(lambda x: x.to(device), params)
 
 
 def _layer_windows(cfg) -> list[int]:
@@ -119,15 +114,28 @@ def _dyn_window_attention(cfg, p, x, positions, window, kv_cache, cache_pos):
     return out.reshape(b, s, cfg.num_heads * hd) @ p["wo"], new_cache
 
 
-def forward(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: [B, S] -> float32 logits [B, S, padded_vocab].  (The
-    reference's ``extra_embeds`` prefix serves the vlm family, which is
-    not ported yet.)"""
+def forward(cfg, params, tokens: torch.Tensor, *,
+            remat: bool | None = None) -> torch.Tensor:
+    """tokens: [B, S] -> float32 logits [B, S, padded_vocab].
+
+    With ``remat`` (``cfg.remat`` when None) and autograd recording, each
+    block runs under :func:`repro_torch.models.common.remat_wrap`, as the
+    reference wraps its scan body: the backward recomputes the block's
+    activations, flash forward included.  Under ``torch.no_grad`` there is
+    nothing to recompute and the blocks run plainly.  (The reference's
+    ``extra_embeds`` prefix serves the vlm family, which is not ported
+    yet.)"""
+    remat = cfg.remat if remat is None else remat
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+
+    def block(h, p, window):
+        return _block_apply(cfg, p, h, positions, window)[0]
+
+    if remat and torch.is_grad_enabled():
+        block = cm.remat_wrap(block, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
-        h, _ = _block_apply(cfg, _layer(params["blocks"], i), h, positions,
-                            window)
+        h = block(h, _layer(params["blocks"], i), window)
     h = cm.apply_norm(params["ln_f"], h, cfg.norm)
     return cm.unembed(params["embed"], h).float()
 

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the min-plus kernel against its plain version,
-and the greedy solve on the card against the same solve on the CPU, bit
-for bit.  Marked ``cuda``; each test skips without a card.  On a GPU
+the greedy solve on the card against the same solve on the CPU, bit for
+bit, and the flash-attention kernels (forward, dq, dk/dv) against their
+plain versions.  Marked ``cuda``; each test skips without a card.  On a GPU
 machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -81,10 +82,11 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _close(got, want, tol):
+def _close(got, want, tol, rtol=None):
+    rtol = tol if rtol is None else rtol
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    assert ((got - want).abs() <= tol + tol * want.abs()).all(), \
+    assert ((got - want).abs() <= tol + rtol * want.abs()).all(), \
         float((got - want).abs().max())
 
 
@@ -141,3 +143,91 @@ def test_flash_launches_once_per_layer_per_prefill(cuda, no_tf32):
     _close(got, want, 3e-4)
     with pytest.raises(ValueError):
         flash.flash_fwd_lse(got[:1], got[:1], got.cpu()[:1], scale=1.0)
+
+
+# (bh, S, d, dv, dtype, causal): the training shape, d = dv and d != dv
+# (192 -> 128, the MLA widths), the widest head, ragged and short lengths
+BWD_CASES = [(36, 2048, 64, 64, torch.bfloat16, True),
+             (4, 256, 64, 64, torch.float32, True),
+             (2, 256, 192, 128, torch.float32, True),
+             (1, 200, 256, 256, torch.float32, True),
+             (2, 130, 32, 48, torch.float32, True),
+             (3, 1000, 64, 64, torch.bfloat16, True),
+             (1, 1, 16, 16, torch.float32, True),
+             (2, 300, 64, 32, torch.float32, False)]
+# gradients as (atol, rtol): float32 within 1e-4 + 1e-4 |want| (sums over
+# up to S terms in another order); bf16 within 1e-3 + 8e-3 |want| (at most
+# one bf16 rounding of the float32 result apart: one ulp <= 2^-7 |want|)
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
+
+
+@pytest.mark.parametrize("bh,s,d,dv,dtype,causal", BWD_CASES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda, no_tf32, bh, s, d, dv,
+                                               dtype, causal):
+    from repro_torch.kernels import flash
+    g = torch.Generator(device=cuda).manual_seed(s + d + dv)
+    q, k = (torch.randn(bh, s, d, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    v, do = (torch.randn(bh, s, dv, device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    scale = d ** -0.5
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale, causal=causal)
+    flash.reset_launch_count()
+    got = flash.flash_bwd(q, k, v, o, lse, do, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash.launch_count("flash_bwd_dq"),
+            flash.launch_count("flash_bwd_dkv")) == (1, 1)
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, scale=scale, causal=causal)
+    for a, b, shape in zip(got, want, (q.shape, k.shape, v.shape)):
+        assert a.dtype == dtype and a.shape == shape
+        _close(a, b, *BWD_TOL[dtype])
+
+
+def test_flash_bwd_is_deterministic_on_card(cuda):
+    from repro_torch.kernels import flash
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(4, 512, 64, device=cuda, generator=g)
+                   .bfloat16() for _ in range(4))
+    o, lse = flash.flash_fwd_lse(q, k, v, scale=0.125)
+    a = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
+    b = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_train_step_launches_the_flash_kernels(cuda, no_tf32):
+    """One float32 train step of the smoke config with remat on the card:
+    per layer two forward launches (forward and recompute) and one launch
+    of each backward kernel; loss and params within the CPU step's."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(registry.smoke_config("smollm_135m"),
+                              dtype=torch.float32, attn_impl="flash",
+                              remat=True)
+    opt = AdamW(schedule=lambda s: 1e-3)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+        flash.reset_launch_count()
+        loss, params, _ = steps.make_train_step(cfg, opt, device=dev)(
+            params, opt.init(params),
+            SyntheticStream(data, device=dev).batch_at(0))
+        out[dev.type] = (loss, params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash.launch_count() == 2 * cfg.num_layers
+            assert flash.launch_count("flash_bwd_dq") == cfg.num_layers
+            assert flash.launch_count("flash_bwd_dkv") == cfg.num_layers
+    _close(out["cuda"][0].cpu(), out["cpu"][0], 1e-5)
+    for (key, a), (_, b) in zip(pytree.items(out["cuda"][1]),
+                                pytree.items(out["cpu"][1])):
+        _close(a.cpu(), b, 2e-5)

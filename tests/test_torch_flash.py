@@ -1,11 +1,14 @@
-"""The port's flash-attention forward against the JAX reference on the CPU.
+"""The port's flash attention, forward and backward, against the JAX
+reference on the CPU.
 
-On CPU tensors the port's wrappers run the kernel's plain version
-(``repro_torch.kernels.ref.flash_fwd_lse_ref``); the reference's Pallas
-kernels run in interpret mode.  Tolerances are the reference's own
-(``tests/test_kernels.py``): O at 2e-5 in float32 and 3e-2 in bfloat16,
-the logsumexp at 1e-5.  The kernel itself is held to the plain version on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+On CPU tensors the port's wrappers run the kernels' plain versions
+(``repro_torch.kernels.ref.flash_fwd_lse_ref``, ``flash_bwd_ref``); the
+reference's Pallas kernels run in interpret mode.  Tolerances are the
+reference's own (``tests/test_kernels.py``): O at 2e-5 in float32 and
+3e-2 in bfloat16, the logsumexp at 1e-5; through the backward, the value
+at rtol 1e-4 and dq, dk, dv at atol 1e-4, rtol 1e-3.  The kernels
+themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import math
 
 import numpy as np
@@ -13,9 +16,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash as jflash  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import flash, ops  # noqa: E402
 
 SHAPES = [(2, 256, 64, 64, 128), (1, 256, 192, 128, 64),
@@ -100,14 +106,135 @@ def test_ragged_lengths_against_float64(bh, s, d, dv, causal):
                                rtol=1e-5)
 
 
-def test_backward_raises_instead_of_differentiating_the_plain_version():
+@pytest.mark.parametrize("bh,s,d,dv,bq", [(2, 256, 64, 64, 128),
+                                          (2, 256, 32, 16, 128)])
+def test_flash_grads_match_reference(bh, s, d, dv, bq):
+    """The reference test's shape (``test_flash_grads_match_autodiff``) and
+    a d != dv case: the same q, k, v and cotangent through ``jax.vjp`` of
+    the reference's ``ops.flash_attention`` (its Pallas dq and dk/dv
+    kernels in interpret mode) and through ``torch.autograd.grad`` of the
+    port's."""
+    rng = np.random.default_rng(3 + d)
+    arrs = [rng.standard_normal(shape, dtype=np.float32) for shape in
+            ((bh, s, d), (bh, s, d), (bh, s, dv), (bh, s, dv))]
+    scale = 1 / math.sqrt(d)
+
+    def jf(q, k, v):
+        return jnp.sum(jops.flash_attention(q, k, v, scale=scale, bq=bq,
+                                            bk=bq) * arrs[3])
+
+    want_val, want_grads = jax.value_and_grad(jf, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrs[:3]))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
+    val = (ops.flash_attention(q, k, v, scale=scale)
+           * torch.from_numpy(arrs[3])).sum()
+    grads = torch.autograd.grad(val, (q, k, v))
+    np.testing.assert_allclose(val.item(), float(want_val), rtol=1e-4)
+    for got, want in zip(grads, want_grads):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def _grads_f64(q, k, v, do, scale, causal):
+    """dq, dk, dv of a float64 dense softmax attention (torch autograd)."""
+    qd, kd, vd = (x.detach().double().requires_grad_() for x in (q, k, v))
+    o, _ = _dense_f64(qd, kd, vd, scale, causal)
+    return torch.autograd.grad((o * do.double()).sum(), (qd, kd, vd))
+
+
+@pytest.mark.parametrize("bh,s,d,dv,causal", [
+    (1, 640, 16, 16, True), (2, 130, 64, 64, True), (2, 100, 32, 48, True),
+    (1, 1, 8, 8, True), (2, 100, 32, 48, False)])
+def test_backward_ragged_lengths_against_float64(bh, s, d, dv, causal):
+    """Any S is exact in the port's backward.  At S=640 the reference's
+    backward (bq = bk = 512) leaves rows 512..639 of dq, dk, dv unwritten,
+    so the yardstick is float64 autograd of a dense softmax.  Held: the
+    port's autograd through ``ops.flash_attention`` (causal only) and
+    ``flash_bwd_ref`` itself, at atol 2e-5, rtol 1e-4 (float32 against
+    float64)."""
+    rng = np.random.default_rng(s + dv)
+    q, k = (torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    v, do = (torch.from_numpy(rng.standard_normal((bh, s, dv),
+                                                  dtype=np.float32))
+             for _ in range(2))
+    scale = 1 / math.sqrt(d)
+    want = _grads_f64(q, k, v, do, scale, causal)
+    o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=causal)
+    results = [ref.flash_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                 causal=causal)]
+    if causal:
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = ops.flash_attention(*leaves, scale=scale)
+        results.append(torch.autograd.grad((out * do).sum(), leaves))
+    for got in results:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_ref_equals_its_per_kernel_plain_versions(dtype, causal):
+    """``flash_bwd_ref`` shares one P and dS between dq, dk and dv; the
+    two per-kernel plain versions (each kernel's yardstick on the card)
+    give the same gradients bit for bit."""
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 130, 32), dtype=np.float32)).to(TDT[dtype]) for _ in range(4))
+    kw = dict(scale=1 / math.sqrt(32), causal=causal)
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(o, do)
+    want = (ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+            *ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw))
+    for got, w in zip(ref.flash_bwd_ref(q, k, v, o, lse, do, **kw), want):
+        assert got.dtype == TDT[dtype] and torch.equal(got, w)
+
+
+def test_backward_bfloat16_gives_bfloat16_grads():
+    """bf16 operands give bf16 gradients, within 3e-2 of the float32
+    backward of the same (bf16-representable) values."""
+    rng = np.random.default_rng(7)
+    xs = [torch.from_numpy(rng.standard_normal((2, 256, 32),
+                                               dtype=np.float32))
+          .bfloat16() for _ in range(4)]
+    bf = [x.clone().requires_grad_() for x in xs[:3]]
+    f32 = [x.float().requires_grad_() for x in xs[:3]]
+    got = torch.autograd.grad(
+        (ops.flash_attention(*bf, scale=0.25).float() * xs[3].float()).sum(),
+        bf)
+    want = torch.autograd.grad(
+        (ops.flash_attention(*f32, scale=0.25) * xs[3].float()).sum(), f32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), atol=3e-2,
+                                   rtol=3e-2)
+
+
+def test_backward_raises_instead_of_differentiating_the_plain_version(
+        monkeypatch):
+    """The backward is ``flash.flash_bwd`` (the kernels on the card, their
+    plain version here), not autograd of the plain forward: a failure
+    there raises instead of falling back."""
     q, k, v = (torch.randn(2, 128, 16, generator=torch.Generator()
                            .manual_seed(i), requires_grad=True)
                for i in range(3))
     o = ops.flash_attention(q, k, v, scale=0.25)
     assert o.requires_grad
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    calls = []
+
+    def failing_bwd(*args, **kwargs):
+        calls.append(kwargs)
+        raise RuntimeError("flash_bwd kernel launch failed")
+
+    monkeypatch.setattr(flash, "flash_bwd", failing_bwd)
+    with pytest.raises(RuntimeError, match="flash_bwd"):
         o.sum().backward()
+    assert calls == [{"scale": 0.25, "causal": True}]
+    assert q.grad is None
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -130,3 +257,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     # CPU tensors run the plain version and launch nothing
     flash.flash_fwd_lse(x, x, x, scale=1.0)
     assert flash.launch_count() == launches
+
+
+def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
+    x = torch.zeros(2, 64, 16)
+    lse = torch.zeros(2, 64)
+    launches = (flash.launch_count("flash_bwd_dq"),
+                flash.launch_count("flash_bwd_dkv"))
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_bwd(x, x, x, x, lse.double(), x, scale=1.0)
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_bwd(x, x, x, x, lse[:, :32], x, scale=1.0)
+    with pytest.raises(ValueError, match="do"):
+        flash.flash_bwd(x, x, x, x, lse, x[:, :, :8], scale=1.0)
+    with pytest.raises(ValueError, match="expected o "):
+        flash.flash_bwd(x, x, x, x.bfloat16(), lse, x, scale=1.0)
+    with pytest.raises(ValueError, match="delta"):
+        flash.flash_bwd_dq(x, x, x, x, lse, lse[:, :32], scale=1.0)
+    with pytest.raises(ValueError, match="delta"):
+        flash.flash_bwd_dkv(x, x, x, x, lse, x, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_bwd(x, x, x, x, lse, x.transpose(0, 1).contiguous()
+                        .transpose(0, 1), scale=1.0)
+    with pytest.raises(TypeError):
+        flash.flash_bwd(x.half(), x.half(), x.half(), x.half(), lse,
+                        x.half(), scale=1.0)
+    dq, dk, dv = flash.flash_bwd(x, x, x, x, lse, x, scale=1.0)
+    assert dq.shape == dk.shape == dv.shape == x.shape
+    delta = ref.flash_bwd_delta(x, x)
+    assert torch.equal(flash.flash_bwd_dq(x, x, x, x, lse, delta,
+                                          scale=1.0), dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash.flash_bwd_dkv(x, x, x, x, lse, delta, scale=1.0), (dk, dv)))
+    assert (flash.launch_count("flash_bwd_dq"),
+            flash.launch_count("flash_bwd_dkv")) == launches

@@ -22,6 +22,10 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.kernels.flash, repro_torch.models\n"
             "import repro_torch.serving.engine\n"
             "import repro_torch.serving.scheduler, repro_torch.costs.lm\n"
+            "import repro_torch.launch.train, repro_torch.pytree\n"
+            "import repro_torch.optim.adamw, repro_torch.optim.schedules\n"
+            "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
+            "import repro_torch.distributed.fault\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -48,9 +52,11 @@ def test_sources_never_import_jax_or_reference():
 
 def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs import registry
     from repro_torch.core import Plan, jobs, network
-    from repro_torch.launch import route, serve, steps
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import route, serve, steps, train
     from repro_torch.models import model
     from repro_torch.serving.engine import DecodeEngine
 
@@ -76,6 +82,13 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: model.init_params(cfg, torch.Generator()),
         lambda: model.init_cache(cfg, 1, 4),
         lambda: interop.lm_params_from_numpy({}, cfg, device="cuda"),
+        lambda: steps.make_train_step(cfg),
+        lambda: train.train("smollm_135m", steps=1),
+        lambda: SyntheticStream(DataConfig(vocab_size=8, seq_len=4,
+                                           global_batch=1)),
+        lambda: ckpt.place({}),
+        lambda: interop.adamw_state_from_numpy(
+            {"m": {}, "v": {}, "step": 0}, device="cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
