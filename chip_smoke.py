@@ -5,8 +5,11 @@
 
 Phases, each of which fails the run by exception:
 
-  1. report the card (name, power limit) and build the min-plus kernel
-     from ``src/repro_torch/kernels/csrc/minplus.cu``;
+  1. report the card (name, power limit) and build every kernel from
+     ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all
+     started together); count the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+     load) instructions in each tensor-core library, failing if either
+     is 0;
   2. hold the kernel bit for bit against its plain PyTorch version on the
      card, at the main path's shapes and at ragged and 1e30-laden ones;
   3. drive the main path -- the paper's §V large instance (US backbone at
@@ -21,41 +24,49 @@ Phases, each of which fails the run by exception:
      (median of repeated runs, after warm-up; CUDA events, host clock for
      the solve), and profile one greedy solve with ``torch.profiler``
      (device busy time by kernel, idle share);
-  5. hold the flash-attention kernel (``csrc/flash_fwd.cu``, both entry
-     points) against its plain version on the card, at the prefill's
-     shape ([36, 2048, 64] bf16), at float32 shapes with d = dv and
-     d != dv, at ragged and short lengths, causal and not;
+  5. hold the flash-attention forward kernels, both entry points, against
+     their plain version on the card: the tensor-core kernel
+     (``csrc/flash_fwd_sm90.cu``; bf16, d = dv in {64, 128}) and the
+     CUDA-core kernel (``csrc/flash_fwd.cu``; the rest), at the prefill's
+     shape ([36, 2048, 64] bf16, both kernels), at float32 shapes with
+     d = dv and d != dv, at bf16 d = 128, at ragged and short lengths,
+     causal and not;
   6. drive the serving path's prefill: ``make_prefill_step`` on
      smollm-135m at full width (random weights from seed 0), float32 with
-     TF32 off at B=2, S=512 with attn_impl="flash" against "xla"; then
-     bfloat16 at B=4, S=2048 with every launch counter set to 0 just
-     before and read just after (one flash launch per layer);
+     TF32 off at B=2, S=512 with attn_impl="flash" against "xla" (30
+     launches of the CUDA-core forward); then bfloat16 at B=4, S=2048 with
+     every launch counter set to 0 just before and read just after (30
+     launches of the tensor-core forward, none of the CUDA-core one);
   7. drive ``DecodeEngine`` at full width (bf16, 4 prompts x 128 tokens,
      32 generated): the flash prefill's last logits against a
      ``serve_step`` loop, and both prefill modes' tokens equal;
   8. drive ``launch/serve.py``'s main path on the card (the routed plan
      through the min-plus kernel, the decode engine), its plan equal to
      the CPU port's bit for bit;
-  9. time the flash kernel, its plain version and
+  9. time both forward kernels, their plain version and
      ``F.scaled_dot_product_attention`` (the library yardstick, never
      called by the port) at the prefill's shape, the prefill step and
      decode, and profile one prefill and one decode step with
      ``torch.profiler``;
- 10. hold the flash backward kernels (``csrc/flash_bwd.cu``: dq, dk/dv)
-     against their plain version on the card, at the training shape
-     ([36, 2048, 64] bf16), at float32 shapes with d = dv and d != dv
-     (192 -> 128), at ragged and short lengths, causal and not;
+ 10. hold the flash backward kernels against their plain version on the
+     card: dq (``csrc/flash_bwd.cu``), the tensor-core dk/dv
+     (``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}) and the
+     CUDA-core dk/dv (``csrc/flash_bwd.cu``), at the training shape
+     ([36, 2048, 64] bf16, both dk/dv kernels), at float32 shapes with
+     d = dv and d != dv (192 -> 128), at bf16 d = 128, at ragged and short
+     lengths, causal and not;
  11. drive the training path at smollm-135m's full width (random weights
      from seed 0): float32 with TF32 off at B=2, S=512, loss and grads
-     with attn_impl="flash" against "xla"; then five bfloat16
-     ``make_train_step`` steps at B=4, S=2048 on ``SyntheticStream``
-     batches, with every launch counter set to 0 just before and read
-     just after (per step 60 forward launches -- forward and remat
-     recompute -- and 30 of each backward kernel); then
+     with attn_impl="flash" against "xla" (the CUDA-core kernels); then
+     five bfloat16 ``make_train_step`` steps at B=4, S=2048 on
+     ``SyntheticStream`` batches, with every launch counter set to 0 just
+     before and read just after (per step 60 launches of the tensor-core
+     forward -- forward and remat recompute -- 30 of dq and 30 of the
+     tensor-core dk/dv, none of the CUDA-core forward or dk/dv); then
      ``launch/train.py``'s ``train(preset="full")`` killed by its failure
      injector and resumed from its checkpoint, against an uninterrupted
      run;
- 12. time the backward kernels, their plain versions and the backward of
+ 12. time dq, both dk/dv kernels, their plain versions and the backward of
      ``F.scaled_dot_product_attention`` (``autograd.grad`` of a saved
      forward) at the training shape, the bf16 train step (tokens per
      second), and profile one SDPA backward and one train step.
@@ -101,6 +112,22 @@ PEAK_BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores, dense
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def count_tensor_core_sass(stem: str, lib: pathlib.Path) -> None:
+    """Count the wgmma (HGMMA) and TMA load (UTMALDG) instructions in a
+    tensor-core library's machine code (cuobjdump -sass); fails if either
+    is missing."""
+    from repro_torch.kernels._build import nvcc
+    sass = subprocess.run(
+        [str(pathlib.Path(nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"{stem}: SASS holds {counts['HGMMA']} HGMMA and "
+        f"{counts['UTMALDG']} UTMALDG instructions")
+    if not all(counts.values()):
+        raise AssertionError(f"{stem}: no tensor-core product or no TMA load "
+                             f"in the machine code: {counts}")
 
 
 def paper_jobs_small(seed, registry):
@@ -222,23 +249,113 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
 
 # -- phases 5-9: the serving path (flash attention, prefill, decode) ---------
 
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # O; tests/test_kernels.py
+# O as (atol, rtol): float32 as tests/test_kernels.py; bf16 the output's
+# rounding (up to two ulps, rtol 1.6e-2) and the tensor-core forward's bf16
+# P, whose rounding moves a row of few keys by up to 2^-8 sum(p |v|) / l
+# (atol 4e-3; tests/test_torch_flash.py:rounded_p_forward_gate_share).  At
+# [36,2048,64] the typical |O| is 0.035, so a P.V fault that shifts late
+# rows by 0.01 is far outside it
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 1.6e-2)}
 LSE_TOL = 1e-5
 # dq, dk, dv against the plain backward, as (atol, rtol): float32 sums over
 # up to S terms in another order; bf16 at most one bf16 rounding of the
 # float32 result apart (one ulp <= 2^-7 |want|), with atol for values
 # near 0.  At [36,2048,64] the gradients are 0.02-0.05, so a dropped key
-# tile or a mis-scaled dS is far outside this; the kernels equal the
-# plain version bit for bit in bf16 on the H100 (PERF.md)
+# tile or a mis-scaled dS is far outside this; the CUDA-core kernels equal
+# the plain version bit for bit in bf16 on the H100, the tensor-core dk/dv
+# kernel lands within it by splitting P and dS into hi + lo bf16 (PERF.md)
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
-# (bh, S, d, dv, dtype, causal); the first is the prefill's per-layer shape
+# (bh, S, d, dv, dtype, causal); the first is the prefill's per-layer shape.
+# bf16 with d = dv in {64, 128} takes the tensor-core kernel, the rest the
+# CUDA-core kernel (flash.kernel_variant); at the first shape both run
 FLASH_CASES = [(36, 2048, 64, 64, "bfloat16", True),
                (8, 256, 64, 64, "float32", True),
                (2, 256, 192, 128, "float32", True),
                (4, 1000, 64, 64, "bfloat16", True),
                (3, 130, 64, 64, "float32", True),
                (2, 64, 64, 64, "float32", True),
-               (2, 300, 64, 32, "float32", False)]
+               (2, 300, 64, 32, "float32", False),
+               (4, 2048, 128, 128, "bfloat16", True),
+               (3, 130, 64, 64, "bfloat16", True),
+               (2, 64, 128, 128, "bfloat16", True),
+               (1, 1, 64, 64, "bfloat16", True),
+               (2, 1000, 64, 64, "bfloat16", False),
+               (2, 300, 128, 128, "bfloat16", False)]
+FWD_ENTRIES = ("flash_fwd_lse", "flash_attention_bhsd")
+PREFILL_SHAPE = (36, 2048, 64)  # [B*H, S, hd] of one layer at B=4, S=2048
+# (entry, variant) -> (name in the kernels line, source, TPU kernel)
+KERNEL_ROWS = {
+    ("flash_fwd_lse", "simt"): (
+        "flash_fwd_lse", "flash_fwd.cu",
+        "src/repro/kernels/flash.py:125 (_flash_fwd_lse_kernel, flash_fwd_lse "
+        "at :259)"),
+    ("flash_attention_bhsd", "simt"): (
+        "flash_attention_bhsd", "flash_fwd.cu",
+        "src/repro/kernels/flash.py:35 (_flash_kernel, flash_attention_bhsd "
+        "at :85; not on the serving path)"),
+    ("flash_fwd_lse", "sm90"): (
+        "flash_fwd_lse_sm90", "flash_fwd_sm90.cu",
+        "src/repro/kernels/flash.py:125 (_flash_fwd_lse_kernel, flash_fwd_lse "
+        "at :259)"),
+    ("flash_attention_bhsd", "sm90"): (
+        "flash_attention_bhsd_sm90", "flash_fwd_sm90.cu",
+        "src/repro/kernels/flash.py:35 (_flash_kernel, flash_attention_bhsd "
+        "at :85; not on the serving path)"),
+    ("flash_bwd_dq", "simt"): (
+        "flash_bwd_dq", "flash_bwd.cu",
+        "src/repro/kernels/flash.py:170 (_flash_dq_kernel; flash_bwd at :292, "
+        "pallas_call :300)"),
+    ("flash_bwd_dkv", "simt"): (
+        "flash_bwd_dkv", "flash_bwd.cu",
+        "src/repro/kernels/flash.py:211 (_flash_dkv_kernel; flash_bwd at "
+        ":292, pallas_call :320)"),
+    ("flash_bwd_dkv", "sm90"): (
+        "flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu",
+        "src/repro/kernels/flash.py:211 (_flash_dkv_kernel; flash_bwd at "
+        ":292, pallas_call :320)"),
+}
+
+
+def kernel_row(key, launches, err, ms, plain_ms, bound, library_ms):
+    name, source, replaces = KERNEL_ROWS[key]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def fwd_call(flash, entry, variant, q, k, v, *, scale, causal):
+    """(O, lse or None) of ``entry`` through ``variant``'s kernel: the public
+    wrapper when the dispatch rule picks that kernel, else the wrapper's
+    launcher with the variant named (the other kernel at the same inputs,
+    for its check and time)."""
+    if variant == flash.kernel_variant(entry, q.dtype, q.shape[2],
+                                       v.shape[2]):
+        if entry == "flash_fwd_lse":
+            return flash.flash_fwd_lse(q, k, v, scale=scale, causal=causal)
+        return flash.flash_attention_bhsd(q, k, v, scale=scale,
+                                          causal=causal), None
+    return flash._launch(q, k, v, scale, causal, entry, variant)
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call of ``fn`` (no synchronisation inside
+    the loop), in us: at a tiny shape, the wrapper's own cost."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def flash_variant_counts(flash) -> dict:
+    return {f"{e}/{v}": flash.launch_count(e, v) for e in flash.ENTRIES
+            for v in flash.VARIANTS if flash.launch_count(e, v)}
 
 
 def flash_inputs(rng, bh, s, d, dv, dtype, dev):
@@ -246,6 +363,12 @@ def flash_inputs(rng, bh, s, d, dv, dtype, dev):
     tdt = getattr(torch, dtype)
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
             .to(dev, tdt) for shape in ((bh, s, d), (bh, s, d), (bh, s, dv))]
+
+
+def gate_share(got, want, tol: float, rtol: float) -> float:
+    """max |got - want| / (tol + rtol |want|): below 1 within the gate."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + rtol * want.abs())).max())
 
 
 def max_err_within(got, want, tol: float, what: str,
@@ -293,31 +416,43 @@ def serving_phases(dev, smi: str) -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(5)
 
-    # -- 5. the flash kernel against its plain version ------------------------
-    err = {"flash_fwd_lse": 0.0, "flash_attention_bhsd": 0.0}
+    # -- 5. the flash forward kernels against their plain version -----------
+    err = {(e, v): 0.0 for e in FWD_ENTRIES for v in flash.VARIANTS}
     for bh, s, d, dv, dtype, causal in FLASH_CASES:
         q, k, v = flash_inputs(rng, bh, s, d, dv, dtype, dev)
         scale = 1 / math.sqrt(d)
-        o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=causal)
         want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
                                                  causal=causal)
-        torch.cuda.synchronize()
-        what = f"flash_fwd_lse {dtype} [{bh},{s},{d}->{dv}] causal={causal}"
-        e_o = max_err_within(o, want_o, FLASH_TOL[dtype], what + " O")
-        e_l = max_err_within(lse, want_lse, LSE_TOL, what + " lse")
-        err["flash_fwd_lse"] = max(err["flash_fwd_lse"], e_o, e_l)
-        log(f"{what}: max |O - plain| {e_o:.3e}, max |lse - plain| "
-            f"{e_l:.3e}")
-        if (s, dtype) in ((2048, "bfloat16"), (256, "float32"),
-                          (1000, "bfloat16")) and d == dv:
-            o2 = flash.flash_attention_bhsd(q, k, v, scale=scale,
-                                            causal=causal)
+        variants = [flash.kernel_variant("flash_fwd_lse", q.dtype, d, dv)]
+        if (bh, s, d, dtype) == (*PREFILL_SHAPE, "bfloat16"):
+            variants.append("simt")     # the CUDA-core kernel at the shape
+        for variant in variants:
+            o, lse = fwd_call(flash, "flash_fwd_lse", variant, q, k, v,
+                              scale=scale, causal=causal)
             torch.cuda.synchronize()
-            e2 = max_err_within(o2, want_o, FLASH_TOL[dtype],
-                                f"flash_attention_bhsd {dtype} [{bh},{s}]")
-            err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e2)
-            log(f"  no-lse entry point at [{bh},{s},{d}]: max |O - plain| "
-                f"{e2:.3e}")
+            what = (f"flash_fwd_lse ({variant}) {dtype} [{bh},{s},{d}->{dv}] "
+                    f"causal={causal}")
+            atol, rtol = FLASH_TOL[dtype]
+            e_o = max_err_within(o, want_o, atol, what + " O", rtol)
+            e_l = max_err_within(lse, want_lse, LSE_TOL, what + " lse")
+            key = ("flash_fwd_lse", variant)
+            err[key] = max(err[key], e_o, e_l)
+            log(f"{what}: max |O - plain| {e_o:.3e} (share of the gate "
+                f"{gate_share(o, want_o, atol, rtol):.3f}), max |lse - "
+                f"plain| {e_l:.3e}")
+            if (s, dtype) in ((2048, "bfloat16"), (256, "float32"),
+                              (1000, "bfloat16"), (130, "bfloat16")) \
+                    and d == dv:
+                o2, _ = fwd_call(flash, "flash_attention_bhsd", variant, q, k,
+                                 v, scale=scale, causal=causal)
+                torch.cuda.synchronize()
+                e2 = max_err_within(o2, want_o, atol,
+                                    f"flash_attention_bhsd ({variant}) "
+                                    f"{dtype} [{bh},{s}]", rtol)
+                key = ("flash_attention_bhsd", variant)
+                err[key] = max(err[key], e2)
+                log(f"  no-lse entry point at [{bh},{s},{d}]: max |O - "
+                    f"plain| {e2:.3e}")
 
     # -- 6. full-width smollm-135m prefill ------------------------------------
     full = registry.config("smollm_135m")
@@ -333,9 +468,12 @@ def serving_phases(dev, smi: str) -> list[dict]:
     got = flash_step(params32, {"tokens": toks})
     want = xla_step(params32, {"tokens": toks})
     torch.cuda.synchronize()
-    if flash.launch_count() != full.num_layers:
-        raise AssertionError(f"float32 prefill: {flash.launch_count()} flash "
-                             f"launches, expected {full.num_layers}")
+    f32_launches = flash.launch_count("flash_fwd_lse", "simt")
+    if flash_variant_counts(flash) != {"flash_fwd_lse/simt":
+                                       full.num_layers}:
+        raise AssertionError(f"float32 prefill: flash launches "
+                             f"{flash_variant_counts(flash)}, expected "
+                             f"{full.num_layers} of the CUDA-core forward")
     if got.shape != (2, 512, full.padded_vocab):
         raise AssertionError(f"prefill logits shape {tuple(got.shape)}")
     e32 = max_err_within(got, want, 3e-4, "float32 prefill flash vs xla")
@@ -353,14 +491,17 @@ def serving_phases(dev, smi: str) -> list[dict]:
         mod.reset_launch_count()
     logits = step(params, batch)
     torch.cuda.synchronize()
-    launches = flash.launch_count()
-    no_lse_launches = flash.launch_count("flash_attention_bhsd")
-    log(f"bf16 prefill B=4 S=2048 (the serving path): {launches} "
-        f"flash_fwd_lse launches, {no_lse_launches} no-lse launches, "
+    launches = {(e, v): flash.launch_count(e, v) for e in FWD_ENTRIES
+                for v in flash.VARIANTS}
+    log(f"bf16 prefill B=4 S=2048 (the serving path): flash launches by "
+        f"kernel {flash_variant_counts(flash)}, "
         f"{minplus.launch_count()} min-plus launches")
-    if launches != full.num_layers:
-        raise AssertionError(f"bf16 prefill: {launches} flash launches, "
-                             f"expected {full.num_layers}")
+    if flash_variant_counts(flash) != {"flash_fwd_lse/sm90":
+                                       full.num_layers}:
+        raise AssertionError(f"bf16 prefill: flash launches "
+                             f"{flash_variant_counts(flash)}, expected "
+                             f"{full.num_layers} of the tensor-core forward "
+                             f"and none of the CUDA-core one")
     if logits.shape != (4, 2048, full.padded_vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("bf16 prefill logits not finite or misshapen")
@@ -418,20 +559,19 @@ def serving_phases(dev, smi: str) -> list[dict]:
         f"{sres.tokens_per_s:.1f} tok/s (smoke config)")
 
     # -- 9. timings -----------------------------------------------------------
-    bh, s, d = 36, 2048, 64
+    bh, s, d = PREFILL_SHAPE
     q, k, v = flash_inputs(rng, bh, s, d, d, "bfloat16", dev)
     scale = 1 / math.sqrt(d)
-    t = {
-        "flash_fwd_lse": event_ms(lambda: flash.flash_fwd_lse(
-            q, k, v, scale=scale), reps=10, inner=10),
-        "flash_attention_bhsd": event_ms(lambda: flash.flash_attention_bhsd(
-            q, k, v, scale=scale), reps=10, inner=10),
-        "plain": event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
-                          reps=5, inner=3),
-        "sdpa": event_ms(lambda: F.scaled_dot_product_attention(
-            *(x.unflatten(0, (4, -1)) for x in (q, k, v)),   # [B, H, S, d]
-            is_causal=True, scale=scale), reps=10, inner=10),
-    }
+    t = {(e, var): event_ms(
+        lambda e=e, var=var: fwd_call(flash, e, var, q, k, v, scale=scale,
+                                      causal=True),
+        reps=10 if var == "sm90" else 5, inner=10 if var == "sm90" else 5)
+        for e in FWD_ENTRIES for var in flash.VARIANTS}
+    t["plain"] = event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
+                          reps=5, inner=3)
+    t["sdpa"] = event_ms(lambda: F.scaled_dot_product_attention(
+        *(x.unflatten(0, (4, -1)) for x in (q, k, v)),       # [B, H, S, d]
+        is_causal=True, scale=scale), reps=10, inner=10)
     prefill_ms = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -440,20 +580,28 @@ def serving_phases(dev, smi: str) -> list[dict]:
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     bound = {e: flash_bound(bh, s, d, d, "bfloat16", True,
-                            e == "flash_fwd_lse") for e in err}
+                            e == "flash_fwd_lse") for e in FWD_ENTRIES}
     log(f"timings on {smi}:")
-    for e in err:
-        log(f"  {e} [{bh},{s},{d}] bf16 causal: {t[e] * 1e3:.1f} us per "
-            f"call; bound {bound[e][0] * 1e3:.2f} us ({bound[e][1]})")
+    for e, var in err:
+        log(f"  {e} ({var}) [{bh},{s},{d}] bf16 causal: "
+            f"{t[(e, var)] * 1e3:.1f} us per call; bound "
+            f"{bound[e][0] * 1e3:.2f} us ({bound[e][1]})")
     log(f"  plain version: {t['plain'] * 1e3:.1f} us; "
         f"F.scaled_dot_product_attention (library yardstick): "
         f"{t['sdpa'] * 1e3:.1f} us")
+    tiny = flash_inputs(rng, 1, 64, 64, 64, "bfloat16", dev)
+    host = {var: host_us_per_call(lambda var=var: flash._launch(
+        *tiny, 0.125, True, "flash_fwd_lse", var)) for var in flash.VARIANTS}
+    log(f"  host time per flash_fwd_lse launch at [1,64,64] bf16: sm90 "
+        f"{host['sm90']:.1f} us (three tensor maps encoded per call), simt "
+        f"{host['simt']:.1f} us")
+    n_fwd = launches[("flash_fwd_lse", "sm90")]
     log(f"  prefill step smollm-135m B=4 S=2048 bf16: median "
         f"{statistics.median(prefill_ms):.2f} ms over 5 (min "
         f"{min(prefill_ms):.2f}, max {max(prefill_ms):.2f}); "
-        f"{launches} flash launches per prefill, "
-        f"{launches * t['flash_fwd_lse']:.2f} ms of them by the kernel's "
-        f"time per call")
+        f"{n_fwd} flash launches per prefill, "
+        f"{n_fwd * t[('flash_fwd_lse', 'sm90')]:.2f} ms of them by the "
+        f"kernel's time per call")
     log(f"  decode (DecodeEngine, 4 x 32 tokens after 128): "
         f"{res.tokens_per_s:.1f} tok/s")
     dcache = M.init_cache(cfg, 4, 168, device=dev)
@@ -464,28 +612,18 @@ def serving_phases(dev, smi: str) -> list[dict]:
         profile_device("one decode step (B=4, bf16)", lambda: serve_step(
             params, dcache, {"tokens": tok, "pos": 128}), top=6)
 
-    return [{
-        "name": e,
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": ("src/repro/kernels/flash.py:125 (_flash_fwd_lse_kernel, "
-                     "flash_fwd_lse at :259)" if e == "flash_fwd_lse" else
-                     "src/repro/kernels/flash.py:35 (_flash_kernel, "
-                     "flash_attention_bhsd at :85; not on the serving path)"),
-        "launches": launches if e == "flash_fwd_lse" else no_lse_launches,
-        "max_abs_err": err[e],
-        "ms": t[e],
-        "plain_ms": t["plain"],
-        "bound_ms": bound[e][0],
-        "bound_by": bound[e][1],
-        "library_ms": t["sdpa"],
-    } for e in err]
+    # launches: the bf16 prefill's; the CUDA-core forward's main-path run
+    # is now the float32 prefill of phase 6
+    launches[("flash_fwd_lse", "simt")] = f32_launches
+    return [kernel_row(key, launches[key], err[key], t[key], t["plain"],
+                       bound[key[0]], t["sdpa"]) for key in err]
 
 
 # -- phases 10-12: the training path (flash backward, train step) ------------
 
 # (bh, S, d, dv, dtype, causal); the first is the training path's per-layer
-# shape
+# shape; the dk/dv kernel is chosen as the forward is, and at the first
+# shape both run
 BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (8, 256, 64, 64, "float32", True),
              (2, 256, 192, 128, "float32", True),
@@ -493,13 +631,34 @@ BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (3, 130, 64, 64, "float32", True),
              (2, 64, 64, 64, "float32", True),
              (1, 1, 16, 16, "float32", True),
-             (2, 300, 64, 32, "float32", False)]
+             (2, 300, 64, 32, "float32", False),
+             (4, 2048, 128, 128, "bfloat16", True),
+             (3, 130, 64, 64, "bfloat16", True),
+             (2, 64, 128, 128, "bfloat16", True),
+             (1, 1, 64, 64, "bfloat16", True),
+             (2, 1000, 64, 64, "bfloat16", False),
+             (2, 300, 128, 128, "bfloat16", False)]
 # full-width float32 grads, flash against the XLA-style path (TF32 off):
 # per leaf, max |diff| <= GRAD_REL * max |grad| of that leaf -- the same
 # function summed in another order through 30 layers (7.0e-7 on an H100);
 # a wrong kernel is off by O(1)
 LOSS_RTOL, GRAD_REL = 1e-5, 1e-5
 BWD_ENTRIES = ("flash_bwd_dq", "flash_bwd_dkv")
+BWD_KERNELS = (("flash_bwd_dq", "simt"), ("flash_bwd_dkv", "simt"),
+               ("flash_bwd_dkv", "sm90"))
+
+
+def dkv_call(flash, variant, q, k, v, do, lse, delta, *, scale, causal):
+    """(dk, dv) through ``variant``'s dk/dv kernel, as :func:`fwd_call`."""
+    import torch
+    if variant == flash.kernel_variant("flash_bwd_dkv", q.dtype, q.shape[2],
+                                       v.shape[2]):
+        return flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
+                                   causal=causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    flash._launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                      scale, causal, variant)
+    return dk, dv
 TRAIN_SHAPE = (36, 2048, 64)    # [B*H, S, hd] of one layer at B=4, S=2048
 
 
@@ -546,7 +705,7 @@ def training_phases(dev, smi: str) -> list[dict]:
             (bh, s, dv), dtype=np.float32)).to(dev, getattr(torch, dtype))
 
     # -- 10. the backward kernels against their plain version ----------------
-    err = dict.fromkeys(BWD_ENTRIES, 0.0)
+    err = dict.fromkeys(BWD_KERNELS, 0.0)
     for bh, s, d, dv, dtype, causal in BWD_CASES:
         q, k, v = flash_inputs(rng, bh, s, d, dv, dtype, dev)
         do = cotangent(bh, s, dv, dtype)
@@ -560,7 +719,9 @@ def training_phases(dev, smi: str) -> list[dict]:
         want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                  **kw)
         torch.cuda.synchronize()
-        what = f"flash_bwd {dtype} [{bh},{s},{d}->{dv}] causal={causal}"
+        variant = flash.kernel_variant("flash_bwd_dkv", q.dtype, d, dv)
+        what = (f"flash_bwd (dk/dv {variant}) {dtype} [{bh},{s},{d}->{dv}] "
+                f"causal={causal}")
         atol, rtol = BWD_TOL[dtype]
         e_dq = max_err_within(dq, want_dq, atol, what + " dq", rtol)
         e_dkv = max(max_err_within(dk, want_dk, atol, what + " dk", rtol),
@@ -568,11 +729,24 @@ def training_phases(dev, smi: str) -> list[dict]:
         if not all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv_))):
             raise AssertionError(f"{what}: flash_bwd differs from its two "
                                  f"kernels' own launches")
-        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
-        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
+        err[("flash_bwd_dq", "simt")] = max(err[("flash_bwd_dq", "simt")],
+                                            e_dq)
+        err[("flash_bwd_dkv", variant)] = max(
+            err[("flash_bwd_dkv", variant)], e_dkv)
         log(f"{what}: max |dq - plain| {e_dq:.3e}, max |dk, dv - plain| "
             f"{e_dkv:.3e} (atol {atol}, rtol {rtol}); flash_bwd == its "
             f"kernels, bit for bit")
+        if variant == "sm90" and (bh, s, d) == TRAIN_SHAPE:
+            # the CUDA-core dk/dv kernel at the training shape too
+            dk, dv_ = dkv_call(flash, "simt", q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            e_simt = max(
+                max_err_within(dk, want_dk, atol, what + " simt dk", rtol),
+                max_err_within(dv_, want_dv, atol, what + " simt dv", rtol))
+            err[("flash_bwd_dkv", "simt")] = max(
+                err[("flash_bwd_dkv", "simt")], e_simt)
+            log(f"  CUDA-core dk/dv kernel at the same inputs: max |dk, dv "
+                f"- plain| {e_simt:.3e}")
     del q, k, v, do, o, lse, delta, dq, dk, dv_, whole
 
     # -- 11. the training path at full width ---------------------------------
@@ -592,11 +766,15 @@ def training_phases(dev, smi: str) -> list[dict]:
     flash.reset_launch_count()
     loss_f, grads_f = loss_and_grads(cfg32)
     torch.cuda.synchronize()
-    got = [flash.launch_count(e) for e in ("flash_fwd_lse",) + BWD_ENTRIES]
-    want = [2 * full.num_layers, full.num_layers, full.num_layers]
+    got = flash_variant_counts(flash)
+    f32_dkv_launches = flash.launch_count("flash_bwd_dkv", "simt")
+    want = {"flash_fwd_lse/simt": 2 * full.num_layers,
+            "flash_bwd_dq/simt": full.num_layers,
+            "flash_bwd_dkv/simt": full.num_layers}
     if got != want:
         raise AssertionError(f"float32 loss + grads: launches {got}, "
-                             f"expected {want} (remat on)")
+                             f"expected {want} (remat on, the CUDA-core "
+                             f"kernels)")
     loss_x, grads_x = loss_and_grads(dataclasses.replace(cfg32,
                                                          attn_impl="xla"))
     torch.cuda.synchronize()
@@ -636,19 +814,19 @@ def training_phases(dev, smi: str) -> list[dict]:
         loss, params, opt_state = train_step(params, opt_state, b)
         losses.append(loss)
     torch.cuda.synchronize()
-    launches = {e: flash.launch_count(e) for e in
-                ("flash_fwd_lse", "flash_attention_bhsd") + BWD_ENTRIES}
+    launches = {key: flash.launch_count(*key) for key in BWD_KERNELS}
     losses = [float(x) for x in losses]
-    log(f"bf16 train steps B=4 S=2048 (the training path), 5 steps: "
-        f"launches {launches}, min-plus {minplus.launch_count()}; losses "
-        f"{[round(x, 4) for x in losses]}")
-    per_step = {"flash_fwd_lse": 2 * full.num_layers,
-                "flash_attention_bhsd": 0,
-                "flash_bwd_dq": full.num_layers,
-                "flash_bwd_dkv": full.num_layers}
-    if launches != {e: 5 * n for e, n in per_step.items()}:
-        raise AssertionError(f"train steps: launches {launches}, expected "
-                             f"5 x {per_step}")
+    log(f"bf16 train steps B=4 S=2048 (the training path), 5 steps: flash "
+        f"launches by kernel {flash_variant_counts(flash)}, min-plus "
+        f"{minplus.launch_count()}; losses {[round(x, 4) for x in losses]}")
+    per_step = {"flash_fwd_lse/sm90": 2 * full.num_layers,
+                "flash_bwd_dq/simt": full.num_layers,
+                "flash_bwd_dkv/sm90": full.num_layers}
+    if flash_variant_counts(flash) != {e: 5 * n for e, n in per_step.items()}:
+        raise AssertionError(f"train steps: launches "
+                             f"{flash_variant_counts(flash)}, expected 5 x "
+                             f"{per_step} (none of the CUDA-core forward or "
+                             f"dk/dv)")
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - math.log(full.padded_vocab)) > 0.5:
         raise AssertionError(f"train losses {losses}: not finite, or step 0 "
@@ -683,12 +861,17 @@ def training_phases(dev, smi: str) -> list[dict]:
     o, lse = flash.flash_fwd_lse(q, k, v, **kw)
     delta = ref.flash_bwd_delta(o, do)
     args = (q, k, v, do, lse, delta)
+    causal = dict(causal=True)
     t = {"flash_fwd_lse": event_ms(lambda: flash.flash_fwd_lse(q, k, v, **kw),
-                                   reps=5, inner=5),
-         "flash_bwd_dq": event_ms(lambda: flash.flash_bwd_dq(*args, **kw),
-                                  reps=10, inner=5),
-         "flash_bwd_dkv": event_ms(lambda: flash.flash_bwd_dkv(*args, **kw),
-                                   reps=10, inner=5),
+                                   reps=10, inner=10),
+         ("flash_bwd_dq", "simt"): event_ms(
+             lambda: flash.flash_bwd_dq(*args, **kw), reps=10, inner=5),
+         ("flash_bwd_dkv", "simt"): event_ms(
+             lambda: dkv_call(flash, "simt", *args, **kw, **causal),
+             reps=10, inner=5),
+         ("flash_bwd_dkv", "sm90"): event_ms(
+             lambda: dkv_call(flash, "sm90", *args, **kw, **causal),
+             reps=10, inner=10),
          "plain_dq": event_ms(lambda: ref.flash_bwd_dq_ref(*args, **kw),
                               reps=5, inner=3),
          "plain_dkv": event_ms(lambda: ref.flash_bwd_dkv_ref(*args, **kw),
@@ -713,18 +896,27 @@ def training_phases(dev, smi: str) -> list[dict]:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     step_med = statistics.median(step_ms)
     flash_ms = (2 * full.num_layers * t["flash_fwd_lse"]
-                + full.num_layers * (t["flash_bwd_dq"] + t["flash_bwd_dkv"]))
+                + full.num_layers * (t[("flash_bwd_dq", "simt")]
+                                     + t[("flash_bwd_dkv", "sm90")]))
     bound = {e: flash_bwd_bound(bh, s, d, d, "bfloat16", True, e)
              for e in BWD_ENTRIES}
     log(f"timings on {smi}:")
-    for e in BWD_ENTRIES:
+    for e, var in BWD_KERNELS:
         plain = t["plain_" + e.rsplit("_", 1)[1]]
-        log(f"  {e} [{bh},{s},{d}] bf16 causal: {t[e] * 1e3:.1f} us per "
-            f"call; bound {bound[e][0] * 1e3:.2f} us ({bound[e][1]}); plain "
-            f"version {plain * 1e3:.1f} us")
+        log(f"  {e} ({var}) [{bh},{s},{d}] bf16 causal: "
+            f"{t[(e, var)] * 1e3:.1f} us per call; bound "
+            f"{bound[e][0] * 1e3:.2f} us ({bound[e][1]}); plain version "
+            f"{plain * 1e3:.1f} us")
+    tiny = [torch.empty_like(x[:1, :64]).copy_(x[:1, :64]) for x in args]
+    host = {var: host_us_per_call(lambda var=var: dkv_call(
+        flash, var, *tiny, scale=0.125, causal=True))
+        for var in flash.VARIANTS}
+    log(f"  host time per flash_bwd_dkv call at [1,64,64] bf16: sm90 "
+        f"{host['sm90']:.1f} us (four tensor maps encoded per call), simt "
+        f"{host['simt']:.1f} us")
     log(f"  F.scaled_dot_product_attention backward (library yardstick, "
         f"[4,9,{s},{d}], dq, dk and dv together, autograd.grad of a saved "
-        f"forward): {t['sdpa_bwd'] * 1e3:.1f} us; flash_fwd_lse "
+        f"forward): {t['sdpa_bwd'] * 1e3:.1f} us; flash_fwd_lse (sm90) "
         f"{t['flash_fwd_lse'] * 1e3:.1f} us")
     log(f"  train step smollm-135m B=4 S=2048 bf16 (remat): median "
         f"{step_med:.2f} ms over 5 (min {min(step_ms):.2f}, max "
@@ -737,23 +929,12 @@ def training_phases(dev, smi: str) -> list[dict]:
                        lambda: train_step(params, opt_state, batches[0]),
                        top=12)
 
-    return [{
-        "name": e,
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
-        "replaces": ("src/repro/kernels/flash.py:170 (_flash_dq_kernel; "
-                     "flash_bwd at :292, pallas_call :300)"
-                     if e == "flash_bwd_dq" else
-                     "src/repro/kernels/flash.py:211 (_flash_dkv_kernel; "
-                     "flash_bwd at :292, pallas_call :320)"),
-        "launches": launches[e],
-        "max_abs_err": err[e],
-        "ms": t[e],
-        "plain_ms": t["plain_" + e.rsplit("_", 1)[1]],
-        "bound_ms": bound[e][0],
-        "bound_by": bound[e][1],
-        "library_ms": t["sdpa_bwd"],
-    } for e in BWD_ENTRIES]
+    # launches: the bf16 train steps'; the CUDA-core dk/dv kernel's
+    # main-path run is now the float32 loss and grads of phase 11
+    launches[("flash_bwd_dkv", "simt")] = f32_dkv_launches
+    return [kernel_row(key, launches[key], err[key], t[key],
+                       t["plain_" + key[0].rsplit("_", 1)[1]], bound[key[0]],
+                       t["sdpa_bwd"]) for key in BWD_KERNELS]
 
 
 def main() -> int:
@@ -778,7 +959,8 @@ def main() -> int:
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
-    builds = [minplus.build, flash.build, lambda: flash.build("flash_bwd")]
+    builds = [minplus.build] + [functools.partial(flash.build, stem)
+                                for stem in flash.STEMS]
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = [pool.submit(b) for b in builds]         # one nvcc each
         lib_paths = [f.result() for f in libs]
@@ -788,6 +970,9 @@ def main() -> int:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
+    for stem, lib in zip(flash.STEMS, lib_paths[1:]):
+        if stem.endswith("_sm90"):
+            count_tensor_core_sass(stem, lib)
 
     # -- 2. the kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)

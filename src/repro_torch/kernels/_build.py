@@ -11,6 +11,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -29,19 +30,46 @@ def nvcc() -> str:
                        "port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: pathlib.Path) -> list[pathlib.Path]:
+    """The headers ``source`` includes with ``#include "..."`` that exist
+    beside the including file, and theirs in turn, sorted by path."""
+    found: set[pathlib.Path] = set()
+    todo = [source]
+    while todo:
+        including = todo.pop()
+        for name in _INCLUDE.findall(including.read_text()):
+            header = (including.parent / name).resolve()
+            if header.is_file() and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def library_tag(source: pathlib.Path, flags: tuple[str, ...]) -> str:
+    """Hash of the source, every local header it includes and the flags:
+    an edit to any of them names a new library."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(source: pathlib.Path, flags: tuple[str, ...],
                   stem: str) -> tuple[pathlib.Path, str]:
     """Compile ``source`` into ``build/kernels/lib<stem>_<tag>.so``.
 
-    ``tag`` hashes the source and the flags, so an edited source is
-    rebuilt and an unchanged one is reused.  The library is written under
+    ``tag`` is :func:`library_tag`: an edited source or included header
+    is rebuilt, an unchanged one reused.  The library is written under
     a temporary name and renamed, so a concurrent reader never sees a
     partial file.  Returns the library's path and the compiler's output
     (empty when the library was already built).  Raises ``RuntimeError``
     with the compiler's output when ``nvcc`` fails.
     """
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
+    tag = library_tag(source, flags)
     out = BUILD_DIR / f"lib{stem}_{tag}.so"
     if out.exists():
         return out, ""

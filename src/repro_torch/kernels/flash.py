@@ -1,13 +1,23 @@
 """Hand-written CUDA flash attention, forward and backward, and their wrappers.
 
-Counterpart of ``repro.kernels.flash``.  The source ``csrc/flash_fwd.cu``
-replaces ``_flash_fwd_lse_kernel`` (behind :func:`flash_fwd_lse`) and
-``_flash_kernel`` (behind :func:`flash_attention_bhsd`, the same kernel
-without the logsumexp output); ``csrc/flash_bwd.cu`` replaces
-``_flash_dq_kernel`` (behind :func:`flash_bwd_dq`) and
-``_flash_dkv_kernel`` (behind :func:`flash_bwd_dkv`), which
-:func:`flash_bwd` runs one after the other.  Each source's header says
-what bounds it on the card and what its design does about that.
+Counterpart of ``repro.kernels.flash``.  Four sources replace the reference's
+Pallas kernels:
+
+* ``csrc/flash_fwd_sm90.cu`` (tensor cores: ``wgmma`` fed by TMA) and
+  ``csrc/flash_fwd.cu`` (CUDA cores, float32) replace
+  ``_flash_fwd_lse_kernel`` (behind :func:`flash_fwd_lse`) and
+  ``_flash_kernel`` (behind :func:`flash_attention_bhsd`, the same kernel
+  without the logsumexp output);
+* ``csrc/flash_bwd.cu`` replaces ``_flash_dq_kernel`` (behind
+  :func:`flash_bwd_dq`), and ``csrc/flash_bwd_dkv_sm90.cu`` (tensor cores)
+  and ``csrc/flash_bwd.cu`` replace ``_flash_dkv_kernel`` (behind
+  :func:`flash_bwd_dkv`); :func:`flash_bwd` runs dq, then dk/dv.
+
+Which kernel a call takes is :func:`kernel_variant`'s rule on dtype and
+shape alone: ``"sm90"`` (the tensor-core kernel) for bfloat16 with
+d = dv in {64, 128}, ``"simt"`` (the CUDA-core kernel) for everything else.
+A build or launch failure raises; nothing falls back.  Each source's header
+says what bounds it on the card and what its design does about that.
 
 Each source is built with ``nvcc`` into its own library under
 ``build/kernels/`` on first use, from the sources in the checkout only,
@@ -31,33 +41,56 @@ from . import ref
 from ._build import build_library
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = {stem: CSRC / f"{stem}.cu" for stem in ("flash_fwd", "flash_bwd")}
+STEMS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_dkv_sm90")
+SOURCES = {stem: CSRC / f"{stem}.cu" for stem in STEMS}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_HEAD_DIM = 256
+SM90_HEAD_DIMS = (64, 128)
+ENTRIES = ("flash_fwd_lse", "flash_attention_bhsd", "flash_bwd_dq",
+           "flash_bwd_dkv")
+VARIANTS = ("sm90", "simt")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
-_launches = {"flash_fwd_lse": 0, "flash_attention_bhsd": 0,
-             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+_launches = {(e, v): 0 for e in ENTRIES for v in VARIANTS}
 build_log: dict[str, str] = {}  # nvcc/ptxas output of this process's builds
 
 
-def launch_count(entry: str = "flash_fwd_lse") -> int:
+def kernel_variant(entry: str, dtype: torch.dtype, d: int, dv: int) -> str:
+    """The kernel ``entry`` launches for a CUDA call: ``"sm90"`` (the
+    tensor-core kernel, ``csrc/flash_fwd_sm90.cu`` or
+    ``csrc/flash_bwd_dkv_sm90.cu``) for the forward entries and dk/dv at
+    bfloat16 with d = dv in {64, 128}; ``"simt"`` (the float32 CUDA-core
+    kernel of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise,
+    and always for dq.  A rule on dtype and shape only."""
+    if entry not in ENTRIES:
+        raise ValueError(f"unknown flash entry {entry!r}")
+    if (entry != "flash_bwd_dq" and dtype == torch.bfloat16 and d == dv
+            and d in SM90_HEAD_DIMS):
+        return "sm90"
+    return "simt"
+
+
+def launch_count(entry: str = "flash_fwd_lse",
+                 variant: str | None = None) -> int:
     """Kernel launches of ``entry`` (``"flash_fwd_lse"``,
     ``"flash_attention_bhsd"``, ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``)
-    since the last :func:`reset_launch_count`."""
-    return _launches[entry]
+    through ``variant`` (``"sm90"`` or ``"simt"``; both when None) since
+    the last :func:`reset_launch_count`."""
+    if variant is None:
+        return sum(_launches[(entry, v)] for v in VARIANTS)
+    return _launches[(entry, variant)]
 
 
 def reset_launch_count() -> None:
-    for entry in _launches:
-        _launches[entry] = 0
+    for key in _launches:
+        _launches[key] = 0
 
 
 def build(stem: str = "flash_fwd") -> pathlib.Path:
-    """Compile ``csrc/<stem>.cu`` (``"flash_fwd"`` or ``"flash_bwd"``;
-    once per source and flag set)."""
+    """Compile ``csrc/<stem>.cu`` (one of :data:`STEMS`; once per source,
+    included headers and flag set)."""
     out, log = build_library(SOURCES[stem], NVCC_FLAGS, stem)
     if log:
         build_log[stem] = log
@@ -68,21 +101,59 @@ def _load(stem: str) -> ctypes.CDLL:
     if stem not in _libs:
         lib = ctypes.CDLL(str(build(stem)))
         ci, vp, cf = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        if stem == "flash_fwd":
-            lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      cf, ci, vp]
-            lib.flash_fwd.restype = ci
-            lib.flash_error_string.argtypes = [ci]
-            lib.flash_error_string.restype = ctypes.c_char_p
-        else:
-            lib.flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 5 + [cf, ci, vp]
-            lib.flash_bwd_dq.restype = ci
-            lib.flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 5 + [cf, ci, vp]
-            lib.flash_bwd_dkv.restype = ci
-            lib.flash_bwd_error_string.argtypes = [ci]
-            lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        signatures = {
+            "flash_fwd": {
+                "flash_fwd": [vp] * 5 + [ci] * 5 + [cf, ci, vp]},
+            "flash_bwd": {
+                "flash_bwd_dq": [vp] * 7 + [ci] * 5 + [cf, ci, vp],
+                "flash_bwd_dkv": [vp] * 8 + [ci] * 5 + [cf, ci, vp]},
+            "flash_fwd_sm90": {
+                "flash_fwd_sm90": [vp] * 5 + [ci] * 3 + [cf, ci, vp],
+                "flash_sm90_probe": [vp] * 5 + [ci, vp]},
+            "flash_bwd_dkv_sm90": {
+                "flash_bwd_dkv_sm90": [vp] * 8 + [ci] * 3 + [cf, ci, vp]},
+        }[stem]
+        for name, argtypes in signatures.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ci
+        errors = {"flash_fwd": "flash_error_string",
+                  "flash_bwd": "flash_bwd_error_string",
+                  "flash_fwd_sm90": "flash_sm90_error_string",
+                  "flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90_error_string"}
+        lib.error_string = getattr(lib, errors[stem])
+        lib.error_string.argtypes = [ci]
+        lib.error_string.restype = ctypes.c_char_p
         _libs[stem] = lib
     return _libs[stem]
+
+
+def _variant(entry, dtype, d, dv, forced: str | None) -> str:
+    """:func:`kernel_variant`'s kernel, or ``forced`` where a kernel of that
+    name takes these inputs (the CUDA-core kernels take every input)."""
+    rule = kernel_variant(entry, dtype, d, dv)
+    if forced is None or forced == rule or forced == "simt":
+        return forced or rule
+    raise ValueError(f"{entry}: no {forced!r} kernel for {dtype} d={d} "
+                     f"dv={dv}")
+
+
+def _raise_if_failed(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed ({code}): "
+                           f"{lib.error_string(code).decode()}")
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """TMA's own conditions on the tensor-core kernels' operands: base
+    pointers 16-byte aligned, and rows of the [BH, S, d] tiles a multiple
+    of 16 bytes ([BH, S] lse and delta are read as one flat vector)."""
+    for name, x in tensors.items():
+        row = x.shape[-1] * x.element_size() if x.dim() == 3 else 16
+        if x.data_ptr() % 16 or row % 16:
+            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base "
+                             f"pointer and rows a multiple of 16 bytes, got "
+                             f"address {x.data_ptr():#x}, rows of {row} "
+                             f"bytes")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -112,26 +183,63 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash attention takes contiguous operands")
 
 
-def _launch(q, k, v, scale: float, causal: bool, entry: str):
-    lib = _load("flash_fwd")
-    with_lse = entry == "flash_fwd_lse"
+def _launch(q, k, v, scale: float, causal: bool, entry: str,
+            variant: str | None = None):
+    """Launch ``entry``'s kernel: :func:`kernel_variant`'s, or ``variant``
+    when given (a measurement of the other kernel at the same inputs;
+    ``"sm90"`` only where the rule allows it)."""
     bh, s, d = q.shape
     dv = v.shape[2]
+    variant = _variant(entry, q.dtype, d, dv, variant)
     o = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+           if entry == "flash_fwd_lse" else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(),
-                             None if lse is None else lse.data_ptr(),
-                             _DTYPE_CODES[q.dtype], bh, s, d, dv,
-                             float(scale), int(causal), stream)
-    if code != 0:
-        raise RuntimeError(f"flash attention kernel launch failed ({code}): "
-                           f"{lib.flash_error_string(code).decode()}")
-    _launches[entry] += 1
+        if variant == "sm90":
+            _check_tma(q=q, k=k, v=v)
+            lib = _load("flash_fwd_sm90")
+            code = lib.flash_fwd_sm90(q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), o.data_ptr(), lse_ptr,
+                                      bh, s, d, float(scale), int(causal),
+                                      stream)
+        else:
+            lib = _load("flash_fwd")
+            code = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse_ptr,
+                                 _DTYPE_CODES[q.dtype], bh, s, d, dv,
+                                 float(scale), int(causal), stream)
+    _raise_if_failed(lib, code, f"{entry} ({variant})")
+    _launches[(entry, variant)] += 1
     return o, lse
+
+
+def sm90_tile_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernels' two tile products alone, for the card's
+    tests: ``(a b^T, bf16(a b^T) c)`` in float32 for contiguous bf16 CUDA
+    tensors a, b, c [64, d], d in {64, 128}.  The first is an SS ``wgmma``
+    (both operands K-major in shared memory), the second an RS ``wgmma``
+    (A from registers, c read MN-major); all three tiles arrive by TMA."""
+    d = a.shape[1]
+    for x in (a, b, c):
+        if x.shape != (64, d) or d not in SM90_HEAD_DIMS \
+                or x.dtype != torch.bfloat16 or x.device.type != "cuda" \
+                or not x.is_contiguous():
+            raise ValueError("sm90_tile_probe takes contiguous bf16 CUDA "
+                             "tensors [64, d], d in {64, 128}")
+    _check_tma(a=a, b=b, c=c)
+    s_out = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    o_out = torch.empty((64, d), dtype=torch.float32, device=a.device)
+    lib = _load("flash_fwd_sm90")
+    with torch.cuda.device(a.device):
+        code = lib.flash_sm90_probe(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), s_out.data_ptr(),
+            o_out.data_ptr(), d,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_if_failed(lib, code, "sm90 tile probe")
+    return s_out, o_out
 
 
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -141,8 +249,9 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``softmax(scale * q k^T) v`` for contiguous q, k [BH, S, d] and
     v [BH, S, dv] (float32 or bfloat16, d, dv <= 256).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation) and count one launch.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    :func:`kernel_variant` names on the current stream (no
+    synchronisation) and count one launch of that variant.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -154,7 +263,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, causal: bool = True
                          ) -> torch.Tensor:
     """O of :func:`flash_fwd_lse` without the logsumexp output (the same
-    kernel, launched with a null logsumexp pointer)."""
+    kernels, launched with a null logsumexp pointer)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
@@ -180,20 +289,28 @@ def _check_bwd(q, k, v, do, lse, *, o=None, delta=None) -> None:
 
 
 def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs, scale: float,
-                causal: bool) -> None:
-    lib = _load("flash_bwd")
+                causal: bool, variant: str | None = None) -> None:
+    """Launch ``entry``'s kernel (or ``variant``'s, as in :func:`_launch`)
+    writing ``outs``."""
     bh, s, d = q.shape
+    dv = v.shape[2]
+    variant = _variant(entry, q.dtype, d, dv, variant)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
-            _DTYPE_CODES[q.dtype], bh, s, d, v.shape[2], float(scale),
-            int(causal), stream)
-    if code != 0:
-        raise RuntimeError(f"{entry} kernel launch failed ({code}): "
-                           f"{lib.flash_bwd_error_string(code).decode()}")
-    _launches[entry] += 1
+        if variant == "sm90":
+            _check_tma(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+            lib = _load("flash_bwd_dkv_sm90")
+            code = lib.flash_bwd_dkv_sm90(*ptrs, bh, s, d, float(scale),
+                                          int(causal), stream)
+        else:
+            lib = _load("flash_bwd")
+            code = getattr(lib, entry)(*ptrs, _DTYPE_CODES[q.dtype], bh, s,
+                                       d, dv, float(scale), int(causal),
+                                       stream)
+    _raise_if_failed(lib, code, f"{entry} ({variant})")
+    _launches[(entry, variant)] += 1
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -217,8 +334,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *, scale: float, causal: bool = True
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk [BH, S, d], dv [BH, S, dv]) in q's dtype; operands as for
-    :func:`flash_bwd_dq`.  CUDA tensors launch the dk/dv kernel (one
-    launch)."""
+    :func:`flash_bwd_dq`.  CUDA tensors launch the dk/dv kernel
+    :func:`kernel_variant` names (one launch)."""
     _check_bwd(q, k, v, do, lse, delta=delta)
     if q.device.type == "cpu":
         return ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale=scale,

@@ -1,8 +1,10 @@
 """The port on a CUDA card: the min-plus kernel against its plain version,
 the greedy solve on the card against the same solve on the CPU, bit for
-bit, and the flash-attention kernels (forward, dq, dk/dv) against their
-plain versions.  Marked ``cuda``; each test skips without a card.  On a GPU
-machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+bit, and the flash-attention kernels (forward, dq, dk/dv; the
+tensor-core forward and dk/dv with their tile products alone) against
+their plain versions.  Marked ``cuda``; each test skips without a card.
+On a GPU machine:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -71,7 +73,11 @@ def test_greedy_on_card_matches_cpu(cuda):
 
 # -- flash attention ----------------------------------------------------------
 
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+# O as (atol, rtol): float32 as tests/test_kernels.py; bf16 within 4e-3 +
+# 1.6e-2 |want| (the output's bf16 rounding, up to two ulps, and the
+# tensor-core forward's bf16 P, whose rounding moves a row of few keys by up
+# to 2^-8 sum(p |v|) / l: test_torch_flash.py:rounded_p_forward_gate_share)
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 1.6e-2)}
 
 
 @pytest.fixture
@@ -116,8 +122,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, no_tf32, bh, s, d, dv,
     want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
                                              causal=causal)
     assert o.dtype == dtype and lse.dtype == torch.float32
-    _close(o, want_o, FLASH_TOL[dtype])
-    _close(o2, want_o, FLASH_TOL[dtype])
+    _close(o, want_o, *FLASH_TOL[dtype])
+    _close(o2, want_o, *FLASH_TOL[dtype])
     _close(lse, want_lse, 1e-5)
 
 
@@ -183,16 +189,74 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, no_tf32, bh, s, d, dv,
         _close(a, b, *BWD_TOL[dtype])
 
 
+@pytest.mark.parametrize("s", [2048, 1000, 130, 64, 1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_kernels_match_plain_on_card(cuda, no_tf32, d, causal, s):
+    """The tensor-core forward (both entries) and dk/dv at bf16, d = dv in
+    {64, 128}, against their plain versions at the bf16 gates,
+    and the launches counted against the "sm90" variant."""
+    from repro_torch.kernels import flash
+    bh = 4 if s == 2048 else 3
+    g = torch.Generator(device=cuda).manual_seed(s + d + causal)
+    q, k, v, do = (torch.randn(bh, s, d, device=cuda, generator=g)
+                   .bfloat16() for _ in range(4))
+    kw = dict(scale=d ** -0.5, causal=causal)
+    flash.reset_launch_count()
+    o, lse = flash.flash_fwd_lse(q, k, v, **kw)
+    o2 = flash.flash_attention_bhsd(q, k, v, **kw)
+    want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(want_o, do)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, want_lse, delta,
+                                             **kw)
+    assert o.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    _close(o, want_o, *FLASH_TOL[torch.bfloat16])
+    _close(o2, want_o, *FLASH_TOL[torch.bfloat16])
+    _close(lse, want_lse, 1e-5)
+    _close(dk, want_dk, *BWD_TOL[torch.bfloat16])
+    _close(dv, want_dv, *BWD_TOL[torch.bfloat16])
+    for entry in ("flash_fwd_lse", "flash_attention_bhsd", "flash_bwd_dkv"):
+        assert (flash.launch_count(entry, "sm90"),
+                flash.launch_count(entry, "simt")) == (1, 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d):
+    """The tensor-core kernels' tile products alone: S = A B^T as an SS
+    wgmma (both K-major, TMA-loaded with 128-byte swizzle) against
+    torch.matmul, and bf16(S) C as an RS wgmma with C read MN-major.
+    Exact products summed in float32: within float32 rounding."""
+    from repro_torch.kernels import flash
+    g = torch.Generator(device=cuda).manual_seed(d)
+    a, b, c = (torch.randn(64, d, device=cuda, generator=g).bfloat16()
+               for _ in range(3))
+    s_out, o_out = flash.sm90_tile_probe(a, b, c)
+    torch.cuda.synchronize()
+    _close(s_out, torch.matmul(a.float(), b.float().T), 1e-4, 1e-5)
+    _close(o_out, torch.matmul(s_out.bfloat16().float(), c.float()), 1e-4,
+           1e-5)
+
+
 def test_flash_bwd_is_deterministic_on_card(cuda):
+    """No atomics: the gradients are the same bits on every run, through
+    the tensor-core dk/dv kernel at bf16, d = 64 and 128, and the CUDA-core
+    one at float32."""
     from repro_torch.kernels import flash
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v, do = (torch.randn(4, 512, 64, device=cuda, generator=g)
-                   .bfloat16() for _ in range(4))
-    o, lse = flash.flash_fwd_lse(q, k, v, scale=0.125)
-    a = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
-    b = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    for d, dtype, variant in ((64, torch.bfloat16, "sm90"),
+                              (128, torch.bfloat16, "sm90"),
+                              (64, torch.float32, "simt")):
+        q, k, v, do = (torch.randn(4, 512, d, device=cuda, generator=g)
+                       .to(dtype) for _ in range(4))
+        o, lse = flash.flash_fwd_lse(q, k, v, scale=0.125)
+        flash.reset_launch_count()
+        a = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
+        b = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
+        assert flash.launch_count("flash_bwd_dkv", variant) == 2
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 def test_train_step_launches_the_flash_kernels(cuda, no_tf32):
@@ -227,7 +291,49 @@ def test_train_step_launches_the_flash_kernels(cuda, no_tf32):
             assert flash.launch_count() == 2 * cfg.num_layers
             assert flash.launch_count("flash_bwd_dq") == cfg.num_layers
             assert flash.launch_count("flash_bwd_dkv") == cfg.num_layers
+            assert flash.launch_count("flash_fwd_lse", "simt") == \
+                2 * cfg.num_layers     # float32 takes the CUDA-core kernels
     _close(out["cuda"][0].cpu(), out["cpu"][0], 1e-5)
     for (key, a), (_, b) in zip(pytree.items(out["cuda"][1]),
                                 pytree.items(out["cpu"][1])):
         _close(a.cpu(), b, 2e-5)
+
+
+def test_bf16_train_step_launches_the_tensor_core_kernels(cuda):
+    """One bf16 train step with remat at head_dim 64 on the card: per layer
+    two forward launches and one dk/dv launch of the tensor-core ("sm90")
+    kernels, one dq launch of the CUDA-core kernel, none of the CUDA-core
+    forward or dk/dv; the loss is finite."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(registry.smoke_config("smollm_135m"),
+                              d_model=128, num_heads=2, num_kv_heads=1,
+                              head_dim=64, dtype=torch.bfloat16,
+                              attn_impl="flash", remat=True)
+    opt = AdamW(schedule=lambda s: 1e-3)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    batch = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                       global_batch=2),
+                            device=cuda).batch_at(0)
+    flash.reset_launch_count()
+    loss, _, _ = steps.make_train_step(cfg, opt, device=cuda)(
+        params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    got = {(e, v): flash.launch_count(e, v) for e in flash.ENTRIES
+           for v in flash.VARIANTS}
+    assert got == {("flash_fwd_lse", "sm90"): 2 * n,
+                   ("flash_fwd_lse", "simt"): 0,
+                   ("flash_attention_bhsd", "sm90"): 0,
+                   ("flash_attention_bhsd", "simt"): 0,
+                   ("flash_bwd_dq", "sm90"): 0,
+                   ("flash_bwd_dq", "simt"): n,
+                   ("flash_bwd_dkv", "sm90"): n,
+                   ("flash_bwd_dkv", "simt"): 0}
+    assert torch.isfinite(loss)

@@ -291,3 +291,161 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
         flash.flash_bwd_dkv(x, x, x, x, lse, delta, scale=1.0), (dk, dv)))
     assert (flash.launch_count("flash_bwd_dq"),
             flash.launch_count("flash_bwd_dkv")) == launches
+
+
+@pytest.mark.parametrize("entry,dtype,d,dv,variant", [
+    ("flash_fwd_lse", "bfloat16", 64, 64, "sm90"),
+    ("flash_fwd_lse", "bfloat16", 128, 128, "sm90"),
+    ("flash_attention_bhsd", "bfloat16", 64, 64, "sm90"),
+    ("flash_bwd_dkv", "bfloat16", 64, 64, "sm90"),
+    ("flash_bwd_dkv", "bfloat16", 128, 128, "sm90"),
+    ("flash_bwd_dq", "bfloat16", 64, 64, "simt"),
+    ("flash_fwd_lse", "float32", 64, 64, "simt"),
+    ("flash_bwd_dkv", "float32", 128, 128, "simt"),
+    ("flash_fwd_lse", "bfloat16", 192, 128, "simt"),
+    ("flash_bwd_dkv", "bfloat16", 192, 128, "simt"),
+    ("flash_fwd_lse", "bfloat16", 32, 32, "simt"),
+    ("flash_bwd_dkv", "bfloat16", 32, 32, "simt"),
+    ("flash_attention_bhsd", "bfloat16", 256, 256, "simt"),
+    ("flash_fwd_lse", "bfloat16", 64, 32, "simt")])
+def test_kernel_variant_is_a_rule_on_dtype_and_shape(entry, dtype, d, dv,
+                                                     variant):
+    """bf16 with d = dv in {64, 128} takes the tensor-core kernel for the
+    forward entries and dk/dv; everything else, and dq, the CUDA-core
+    kernel."""
+    assert flash.kernel_variant(entry, TDT[dtype], d, dv) == variant
+
+
+def test_launch_counts_are_kept_per_variant():
+    with pytest.raises(ValueError, match="unknown flash entry"):
+        flash.kernel_variant("flash_bwd", torch.bfloat16, 64, 64)
+    flash.reset_launch_count()
+    for entry in flash.ENTRIES:
+        assert flash.launch_count(entry) == 0
+        assert all(flash.launch_count(entry, v) == 0 for v in flash.VARIANTS)
+    with pytest.raises(KeyError):
+        flash.launch_count("flash_fwd_lse", "tensor")
+    # the CPU path runs the plain version and counts no launch of either
+    x = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
+    flash.flash_fwd_lse(x, x, x, scale=1.0)
+    assert flash.launch_count() == 0
+
+
+def test_tma_check_rejects_misaligned_operands():
+    """The tensor-core kernels' TMA loads need 16-byte-aligned base
+    pointers and rows of a multiple of 16 bytes; the check raises
+    instead of choosing another kernel."""
+    flat = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    aligned = flat[:2 * 64 * 64].view(2, 64, 64)
+    flash._check_tma(q=aligned)
+    shifted = flat[1:1 + 2 * 64 * 64].view(2, 64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="q: TMA"):
+        flash._check_tma(q=shifted)
+    with pytest.raises(ValueError, match="k: TMA"):
+        flash._check_tma(k=torch.zeros(2, 64, 4, dtype=torch.bfloat16))
+    # lse and delta [BH, S] are one flat vector: any S, an aligned base
+    rows = torch.zeros(2 * 130 + 4)
+    flash._check_tma(lse=rows[:2 * 130].view(2, 130))
+    with pytest.raises(ValueError, match="delta: TMA"):
+        flash._check_tma(delta=rows[1:1 + 2 * 130].view(2, 130))
+
+
+def test_flash_bwd_ref_builds_probabilities_once(monkeypatch):
+    """The CPU backward forms the [BH, S, S] scores, P and dS once for dq,
+    dk and dv together."""
+    calls = []
+    real = ref._bwd_probs
+
+    def counting(*args):
+        calls.append(args[-2:])
+        return real(*args)
+
+    monkeypatch.setattr(ref, "_bwd_probs", counting)
+    q, k, v, do = (torch.randn(2, 40, 16, generator=torch.Generator()
+                               .manual_seed(i)) for i in range(4))
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, scale=0.25)
+    flash.flash_bwd(q, k, v, o, lse, do, scale=0.25)
+    assert calls == [(0.25, True)]
+
+
+def split_operand_gate_ratios(bh=4, s=2048, d=64, seed=0):
+    """The numerics behind the tensor-core dk/dv kernel's split operands, on
+    the CPU: max |got - want| / (atol + rtol |want|) at the bf16 backward
+    gate (1e-3, 8e-3) for dk and dv, when P^T and dS^T enter their products
+    rounded to bf16 once ("once") or split into hi = bf16(x) and
+    lo = bf16(x - hi) ("split"); want is the float32 plain math, every
+    result rounded to bf16.  bf16 standard-normal q, k, v, do, causal."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (bh, s, d), dtype=np.float32)).bfloat16() for _ in range(4))
+    scale = 1 / math.sqrt(d)
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale)
+    delta = ref.flash_bwd_delta(o, do)
+    qf, _, dof, p, ds = ref._bwd_probs(q, k, v, do, lse, delta, scale, True)
+
+    def bf(x):
+        return x.bfloat16().float()
+
+    forms = {"once": bf, "split": lambda x: bf(x) + bf(x - bf(x)),
+             "float32": lambda x: x}
+    out = {}
+    for name, form in forms.items():
+        dk = bf(form(ds).transpose(-1, -2) @ qf)
+        dv = bf(form(p).transpose(-1, -2) @ dof)
+        out[name] = dk, dv
+    ratios = {}
+    for name in ("once", "split"):
+        ratios[name] = tuple(
+            float(((g - w).abs() / (1e-3 + 8e-3 * w.abs())).max())
+            for g, w in zip(out[name], out["float32"]))
+    return ratios
+
+
+def test_split_operands_hold_the_bf16_backward_gate():
+    """Rounding P^T and dS^T to bf16 once breaks the bf16 dk/dv gate at the
+    training shape; the hi + lo split the tensor-core kernel issues holds
+    it (csrc/flash_bwd_dkv_sm90.cu's header)."""
+    ratios = split_operand_gate_ratios()
+    assert min(ratios["once"]) > 1.5, ratios
+    assert max(ratios["split"]) < 1.0, ratios
+
+
+def rounded_p_forward_gate_share(gates, bh=4, s=2048, d=64, seed=0):
+    """The numerics of the tensor-core forward, on the CPU: max |got -
+    want| / (atol + rtol |want|) at each (atol, rtol) of ``gates``, where
+    got is the kernel's online softmax over key tiles (128 keys at d = 64, 64 at
+    d = 128) with P rounded to bf16 once before P V and l summing the
+    float32 P, and want the plain version; both O rounded to bf16.  bf16
+    standard-normal q, k, v, causal."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (bh, s, d), dtype=np.float32)).bfloat16() for _ in range(3))
+    scale = 1 / math.sqrt(d)
+    want = ref.flash_fwd_lse_ref(q, k, v, scale=scale)[0].float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, s, 1), -math.inf)
+    l, o = torch.zeros(bh, s, 1), torch.zeros(bh, s, d)
+    pos = torch.arange(s)
+    bk = 128 if d == 64 else 64
+    for k0 in range(0, s, bk):
+        sc = (qf @ kf[:, k0:k0 + bk].transpose(1, 2)) * scale
+        sc = sc.masked_fill(pos[k0:k0 + bk] > pos[:, None], -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        live = m_new > -math.inf      # rows that have seen a key
+        alpha = torch.where(live, torch.exp(m - m_new), 0.0)
+        p = torch.where(live, torch.exp(sc - m_new), 0.0)
+        m = torch.where(live, m_new, m)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.bfloat16().float() @ vf[:, k0:k0 + bk]
+    diff = ((o / l).bfloat16().float() - want).abs()
+    return [float((diff / (atol + rtol * want.abs())).max())
+            for atol, rtol in gates]
+
+
+def test_rounded_p_forward_within_the_bf16_gate():
+    """Rounding P to bf16 once, as the tensor-core forward does, keeps O
+    within the bf16 O gate of the card checks (4e-3, 1.6e-2) at the
+    prefill's head width, and far inside the old 3e-2 one."""
+    new, old = rounded_p_forward_gate_share([(4e-3, 1.6e-2), (3e-2, 3e-2)])
+    assert new < 0.8 and old < 0.25, (new, old)
