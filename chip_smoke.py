@@ -10,20 +10,26 @@ Phases, each of which fails the run by exception:
      started together); count the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
      load) instructions in each tensor-core library, failing if either
      is 0;
-  2. hold the kernel bit for bit against its plain PyTorch version on the
-     card, at the main path's shapes and at ragged and 1e30-laden ones;
+  2. hold the min-plus product kernel bit for bit against its plain
+     PyTorch version on the card, at the main path's shapes and at ragged
+     and 1e30-laden ones, and the closure kernel (one launch a
+     ``[D, V, V]`` stack, V <= 32) against the plain closure at
+     ``[64, 24, 24]`` and ``[8, 32, 32]``; a V = 40 stack takes the loop
+     of products;
   3. drive the main path -- the paper's §V large instance (US backbone at
      capacity scale 1e-4; 6 VGG19, 2 ResNet34, 2 hand-made models) through
      ``solve(method="greedy")`` and ``"lazy"``, then ``Plan.simulate``
      with the plan's paths and with paths re-derived by
      ``replay_solution`` -- with every launch counter set to 0 just before
-     and read just after; then check the results bit for bit against the
-     same solves run by the port on the CPU, and the quickstart instance
+     and read just after (10 closure launches and no product launch a
+     greedy solve); then check the results bit for bit against the same
+     solves run by the port on the CPU, and the quickstart instance
      against its golden bounds and order;
-  4. time the kernel, its plain version, one closure and one greedy solve
-     (median of repeated runs, after warm-up; CUDA events, host clock for
-     the solve), and profile one greedy solve with ``torch.profiler``
-     (device busy time by kernel, idle share);
+  4. time the product kernel, its plain version, one closure (the closure
+     kernel against the old loop of five product launches) and one greedy
+     solve (median of repeated runs, after warm-up; CUDA events, host
+     clock for the solve), and profile one greedy solve with
+     ``torch.profiler`` (device busy time by kernel, idle share);
   5. hold the flash-attention forward kernels, both entry points, against
      their plain version on the card: the tensor-core kernel
      (``csrc/flash_fwd_sm90.cu``; bf16, d = dv in {64, 128}) and the
@@ -49,10 +55,10 @@ Phases, each of which fails the run by exception:
      decode, and profile one prefill and one decode step with
      ``torch.profiler``;
  10. hold the flash backward kernels against their plain version on the
-     card: dq (``csrc/flash_bwd.cu``), the tensor-core dk/dv
-     (``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}) and the
-     CUDA-core dk/dv (``csrc/flash_bwd.cu``), at the training shape
-     ([36, 2048, 64] bf16, both dk/dv kernels), at float32 shapes with
+     card: the tensor-core dq and dk/dv (``csrc/flash_bwd_dq_sm90.cu``,
+     ``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}) and the
+     CUDA-core dq and dk/dv (``csrc/flash_bwd.cu``), at the training shape
+     ([36, 2048, 64] bf16, all four kernels), at float32 shapes with
      d = dv and d != dv (192 -> 128), at bf16 d = 128, at ragged and short
      lengths, causal and not;
  11. drive the training path at smollm-135m's full width (random weights
@@ -61,14 +67,15 @@ Phases, each of which fails the run by exception:
      five bfloat16 ``make_train_step`` steps at B=4, S=2048 on
      ``SyntheticStream`` batches, with every launch counter set to 0 just
      before and read just after (per step 60 launches of the tensor-core
-     forward -- forward and remat recompute -- 30 of dq and 30 of the
-     tensor-core dk/dv, none of the CUDA-core forward or dk/dv); then
+     forward -- forward and remat recompute -- 30 of the tensor-core dq
+     and 30 of the tensor-core dk/dv, none of a CUDA-core kernel); then
      ``launch/train.py``'s ``train(preset="full")`` killed by its failure
      injector and resumed from its checkpoint, against an uninterrupted
      run;
- 12. time dq, both dk/dv kernels, their plain versions and the backward of
-     ``F.scaled_dot_product_attention`` (``autograd.grad`` of a saved
-     forward) at the training shape, the bf16 train step (tokens per
+ 12. time both dq and both dk/dv kernels, their plain versions and the
+     backward of ``F.scaled_dot_product_attention`` (``autograd.grad`` of
+     a saved forward) at the training shape, the host time of one call of
+     each tensor-core backward kernel, the bf16 train step (tokens per
      second), and profile one SDPA backward and one train step.
 
 The line before the last is a JSON object listing every ported kernel;
@@ -128,6 +135,25 @@ def count_tensor_core_sass(stem: str, lib: pathlib.Path) -> None:
     if not all(counts.values()):
         raise AssertionError(f"{stem}: no tensor-core product or no TMA load "
                              f"in the machine code: {counts}")
+
+
+def assert_no_spills(stem: str, build_log: dict) -> None:
+    """Fails if ptxas reported spills in ``stem``'s build of this process
+    (read from ``-Xptxas=-v``; a library reused from an earlier build has
+    no log here)."""
+    lines = [ln for ln in build_log.get(stem, "").splitlines()
+             if "spill" in ln]
+    if not lines:
+        log(f"{stem}: not built in this process; spills not read")
+        return
+    spilled = [ln.strip() for ln in lines
+               if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                            "spill stores, 0 bytes spill "
+                                            "loads")]
+    if spilled:
+        raise AssertionError(f"{stem}: ptxas spilled: {spilled}")
+    log(f"{stem}: ptxas reports 0 spills in each of its {len(lines)} kernel "
+        f"instances (d = 64, 128)")
 
 
 def paper_jobs_small(seed, registry):
@@ -305,6 +331,10 @@ KERNEL_ROWS = {
         "flash_bwd_dq", "flash_bwd.cu",
         "src/repro/kernels/flash.py:170 (_flash_dq_kernel; flash_bwd at :292, "
         "pallas_call :300)"),
+    ("flash_bwd_dq", "sm90"): (
+        "flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu",
+        "src/repro/kernels/flash.py:170 (_flash_dq_kernel; flash_bwd at :292, "
+        "pallas_call :300)"),
     ("flash_bwd_dkv", "simt"): (
         "flash_bwd_dkv", "flash_bwd.cu",
         "src/repro/kernels/flash.py:211 (_flash_dkv_kernel; flash_bwd at "
@@ -403,7 +433,7 @@ def flash_bound(bh, s, d, dv, dtype, causal, with_lse):
 
 
 def serving_phases(dev, smi: str) -> list[dict]:
-    """Phases 5-9; returns the two flash entries of the kernels line."""
+    """Phases 5-9; returns the four forward entries of the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import registry
@@ -644,22 +674,25 @@ BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
 # a wrong kernel is off by O(1)
 LOSS_RTOL, GRAD_REL = 1e-5, 1e-5
 BWD_ENTRIES = ("flash_bwd_dq", "flash_bwd_dkv")
-BWD_KERNELS = (("flash_bwd_dq", "simt"), ("flash_bwd_dkv", "simt"),
-               ("flash_bwd_dkv", "sm90"))
-
-
-def dkv_call(flash, variant, q, k, v, do, lse, delta, *, scale, causal):
-    """(dk, dv) through ``variant``'s dk/dv kernel, as :func:`fwd_call`."""
-    import torch
-    if variant == flash.kernel_variant("flash_bwd_dkv", q.dtype, q.shape[2],
-                                       v.shape[2]):
-        return flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
-                                   causal=causal)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    flash._launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
-                      scale, causal, variant)
-    return dk, dv
+BWD_KERNELS = (("flash_bwd_dq", "simt"), ("flash_bwd_dq", "sm90"),
+               ("flash_bwd_dkv", "simt"), ("flash_bwd_dkv", "sm90"))
 TRAIN_SHAPE = (36, 2048, 64)    # [B*H, S, hd] of one layer at B=4, S=2048
+
+
+def bwd_call(flash, entry, variant, q, k, v, do, lse, delta, *, scale,
+             causal):
+    """dq, or (dk, dv), through ``variant``'s kernel of ``entry``, as
+    :func:`fwd_call`."""
+    import torch
+    if variant == flash.kernel_variant(entry, q.dtype, q.shape[2],
+                                       v.shape[2]):
+        wrapper = getattr(flash, entry)
+        return wrapper(q, k, v, do, lse, delta, scale=scale, causal=causal)
+    outs = ((torch.empty_like(q),) if entry == "flash_bwd_dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    flash._launch_bwd(entry, q, k, v, do, lse, delta, outs, scale, causal,
+                      variant)
+    return outs[0] if entry == "flash_bwd_dq" else outs
 
 
 def flash_bwd_bound(bh, s, d, dv, dtype, causal, entry):
@@ -684,7 +717,7 @@ def flash_bwd_bound(bh, s, d, dv, dtype, causal, entry):
 
 
 def training_phases(dev, smi: str) -> list[dict]:
-    """Phases 10-12; returns the two backward entries of the kernels line."""
+    """Phases 10-12; returns the four backward entries of the kernels line."""
     import tempfile
 
     import torch
@@ -720,7 +753,7 @@ def training_phases(dev, smi: str) -> list[dict]:
                                                  **kw)
         torch.cuda.synchronize()
         variant = flash.kernel_variant("flash_bwd_dkv", q.dtype, d, dv)
-        what = (f"flash_bwd (dk/dv {variant}) {dtype} [{bh},{s},{d}->{dv}] "
+        what = (f"flash_bwd ({variant}) {dtype} [{bh},{s},{d}->{dv}] "
                 f"causal={causal}")
         atol, rtol = BWD_TOL[dtype]
         e_dq = max_err_within(dq, want_dq, atol, what + " dq", rtol)
@@ -729,23 +762,32 @@ def training_phases(dev, smi: str) -> list[dict]:
         if not all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv_))):
             raise AssertionError(f"{what}: flash_bwd differs from its two "
                                  f"kernels' own launches")
-        err[("flash_bwd_dq", "simt")] = max(err[("flash_bwd_dq", "simt")],
-                                            e_dq)
-        err[("flash_bwd_dkv", variant)] = max(
-            err[("flash_bwd_dkv", variant)], e_dkv)
-        log(f"{what}: max |dq - plain| {e_dq:.3e}, max |dk, dv - plain| "
-            f"{e_dkv:.3e} (atol {atol}, rtol {rtol}); flash_bwd == its "
-            f"kernels, bit for bit")
+        for entry, e in (("flash_bwd_dq", e_dq), ("flash_bwd_dkv", e_dkv)):
+            err[(entry, variant)] = max(err[(entry, variant)], e)
+        share_dkv = max(gate_share(dk, want_dk, atol, rtol),
+                        gate_share(dv_, want_dv, atol, rtol))
+        log(f"{what}: max |dq - plain| {e_dq:.3e} (share of the gate "
+            f"{gate_share(dq, want_dq, atol, rtol):.3f}), max |dk, dv - "
+            f"plain| {e_dkv:.3e} (share {share_dkv:.3f}); atol {atol}, rtol "
+            f"{rtol}; flash_bwd == its kernels, bit for bit")
         if variant == "sm90" and (bh, s, d) == TRAIN_SHAPE:
-            # the CUDA-core dk/dv kernel at the training shape too
-            dk, dv_ = dkv_call(flash, "simt", q, k, v, do, lse, delta, **kw)
+            # the CUDA-core dq and dk/dv kernels at the training shape too
+            dq = bwd_call(flash, "flash_bwd_dq", "simt", q, k, v, do, lse,
+                          delta, **kw)
+            dk, dv_ = bwd_call(flash, "flash_bwd_dkv", "simt", q, k, v, do,
+                               lse, delta, **kw)
             torch.cuda.synchronize()
+            e_dq = max_err_within(dq, want_dq, atol, what + " simt dq", rtol)
             e_simt = max(
                 max_err_within(dk, want_dk, atol, what + " simt dk", rtol),
                 max_err_within(dv_, want_dv, atol, what + " simt dv", rtol))
+            err[("flash_bwd_dq", "simt")] = max(
+                err[("flash_bwd_dq", "simt")], e_dq)
             err[("flash_bwd_dkv", "simt")] = max(
                 err[("flash_bwd_dkv", "simt")], e_simt)
-            log(f"  CUDA-core dk/dv kernel at the same inputs: max |dk, dv "
+            log(f"  CUDA-core kernels at the same inputs: max |dq - plain| "
+                f"{e_dq:.3e} (share of the gate "
+                f"{gate_share(dq, want_dq, atol, rtol):.3f}), max |dk, dv "
                 f"- plain| {e_simt:.3e}")
     del q, k, v, do, o, lse, delta, dq, dk, dv_, whole
 
@@ -767,7 +809,7 @@ def training_phases(dev, smi: str) -> list[dict]:
     loss_f, grads_f = loss_and_grads(cfg32)
     torch.cuda.synchronize()
     got = flash_variant_counts(flash)
-    f32_dkv_launches = flash.launch_count("flash_bwd_dkv", "simt")
+    f32_launches = {e: flash.launch_count(e, "simt") for e in BWD_ENTRIES}
     want = {"flash_fwd_lse/simt": 2 * full.num_layers,
             "flash_bwd_dq/simt": full.num_layers,
             "flash_bwd_dkv/simt": full.num_layers}
@@ -820,13 +862,12 @@ def training_phases(dev, smi: str) -> list[dict]:
         f"launches by kernel {flash_variant_counts(flash)}, min-plus "
         f"{minplus.launch_count()}; losses {[round(x, 4) for x in losses]}")
     per_step = {"flash_fwd_lse/sm90": 2 * full.num_layers,
-                "flash_bwd_dq/simt": full.num_layers,
+                "flash_bwd_dq/sm90": full.num_layers,
                 "flash_bwd_dkv/sm90": full.num_layers}
     if flash_variant_counts(flash) != {e: 5 * n for e, n in per_step.items()}:
         raise AssertionError(f"train steps: launches "
                              f"{flash_variant_counts(flash)}, expected 5 x "
-                             f"{per_step} (none of the CUDA-core forward or "
-                             f"dk/dv)")
+                             f"{per_step} (none of a CUDA-core kernel)")
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - math.log(full.padded_vocab)) > 0.5:
         raise AssertionError(f"train losses {losses}: not finite, or step 0 "
@@ -864,18 +905,15 @@ def training_phases(dev, smi: str) -> list[dict]:
     causal = dict(causal=True)
     t = {"flash_fwd_lse": event_ms(lambda: flash.flash_fwd_lse(q, k, v, **kw),
                                    reps=10, inner=10),
-         ("flash_bwd_dq", "simt"): event_ms(
-             lambda: flash.flash_bwd_dq(*args, **kw), reps=10, inner=5),
-         ("flash_bwd_dkv", "simt"): event_ms(
-             lambda: dkv_call(flash, "simt", *args, **kw, **causal),
-             reps=10, inner=5),
-         ("flash_bwd_dkv", "sm90"): event_ms(
-             lambda: dkv_call(flash, "sm90", *args, **kw, **causal),
-             reps=10, inner=10),
          "plain_dq": event_ms(lambda: ref.flash_bwd_dq_ref(*args, **kw),
                               reps=5, inner=3),
          "plain_dkv": event_ms(lambda: ref.flash_bwd_dkv_ref(*args, **kw),
                                reps=5, inner=3)}
+    for e, var in BWD_KERNELS:
+        t[(e, var)] = event_ms(
+            lambda e=e, var=var: bwd_call(flash, e, var, *args, **kw,
+                                          **causal),
+            reps=10, inner=10 if var == "sm90" else 5)
     q4, k4, v4 = (x.unflatten(0, (4, -1)).detach().requires_grad_()
                   for x in (q, k, v))                      # [B, H, S, d]
     do4 = do.unflatten(0, (4, -1))
@@ -896,7 +934,7 @@ def training_phases(dev, smi: str) -> list[dict]:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     step_med = statistics.median(step_ms)
     flash_ms = (2 * full.num_layers * t["flash_fwd_lse"]
-                + full.num_layers * (t[("flash_bwd_dq", "simt")]
+                + full.num_layers * (t[("flash_bwd_dq", "sm90")]
                                      + t[("flash_bwd_dkv", "sm90")]))
     bound = {e: flash_bwd_bound(bh, s, d, d, "bfloat16", True, e)
              for e in BWD_ENTRIES}
@@ -908,12 +946,13 @@ def training_phases(dev, smi: str) -> list[dict]:
             f"{bound[e][0] * 1e3:.2f} us ({bound[e][1]}); plain version "
             f"{plain * 1e3:.1f} us")
     tiny = [torch.empty_like(x[:1, :64]).copy_(x[:1, :64]) for x in args]
-    host = {var: host_us_per_call(lambda var=var: dkv_call(
-        flash, var, *tiny, scale=0.125, causal=True))
-        for var in flash.VARIANTS}
-    log(f"  host time per flash_bwd_dkv call at [1,64,64] bf16: sm90 "
-        f"{host['sm90']:.1f} us (four tensor maps encoded per call), simt "
-        f"{host['simt']:.1f} us")
+    for e, maps in (("flash_bwd_dq", "four"), ("flash_bwd_dkv", "six")):
+        host = {var: host_us_per_call(lambda e=e, var=var: bwd_call(
+            flash, e, var, *tiny, scale=0.125, causal=True))
+            for var in flash.VARIANTS}
+        log(f"  host time per {e} call at [1,64,64] bf16: sm90 "
+            f"{host['sm90']:.1f} us ({maps} tensor maps encoded per call), "
+            f"simt {host['simt']:.1f} us")
     log(f"  F.scaled_dot_product_attention backward (library yardstick, "
         f"[4,9,{s},{d}], dq, dk and dv together, autograd.grad of a saved "
         f"forward): {t['sdpa_bwd'] * 1e3:.1f} us; flash_fwd_lse (sm90) "
@@ -929,50 +968,21 @@ def training_phases(dev, smi: str) -> list[dict]:
                        lambda: train_step(params, opt_state, batches[0]),
                        top=12)
 
-    # launches: the bf16 train steps'; the CUDA-core dk/dv kernel's
-    # main-path run is now the float32 loss and grads of phase 11
-    launches[("flash_bwd_dkv", "simt")] = f32_dkv_launches
+    # launches: the bf16 train steps'; the CUDA-core kernels' main-path run
+    # is now the float32 loss and grads of phase 11
+    for e in BWD_ENTRIES:
+        launches[(e, "simt")] = f32_launches[e]
     return [kernel_row(key, launches[key], err[key], t[key],
                        t["plain_" + key[0].rsplit("_", 1)[1]], bound[key[0]],
                        t["sdpa_bwd"]) for key in BWD_KERNELS]
 
 
-def main() -> int:
+def routing_phases(dev, smi: str) -> list[dict]:
+    """Phases 2-4; returns the two min-plus entries of the kernels line."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import registry
     from repro_torch.core import jobs as J, network as N, schedule, solvers
-    from repro_torch.kernels import flash, minplus, ops, ref
-
-    dev = torch.device("cuda")
-
-    # -- 1. the card and the build ------------------------------------------
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(smi)
-    t0 = time.perf_counter()
-    builds = [minplus.build] + [functools.partial(flash.build, stem)
-                                for stem in flash.STEMS]
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        libs = [pool.submit(b) for b in builds]         # one nvcc each
-        lib_paths = [f.result() for f in libs]
-    log(f"built {', '.join(p.name for p in lib_paths)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for build_log in (minplus.build_log, *flash.build_log.values()):
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
-    for stem, lib in zip(flash.STEMS, lib_paths[1:]):
-        if stem.endswith("_sm90"):
-            count_tensor_core_sass(stem, lib)
+    from repro_torch.kernels import minplus, ops, ref
 
     # -- 2. the kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
@@ -1001,13 +1011,31 @@ def main() -> int:
         max_err = max(max_err, float((got - want).abs().max()))
         log(f"kernel == plain bit for bit at {sa} x {sb}, 1e30 share "
             f"{inf_share}")
-    w = operand((64, 24, 24), 0.5)
-    got = ops.minplus_closure(w)
-    want = ref.minplus_closure_ref(w)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("closure through the kernel != plain closure")
-    log("closure of a [64, 24, 24] stack == plain closure bit for bit")
+    closure_err = 0.0
+    for shape, variant in (((64, 24, 24), "closure"),
+                           ((8, 32, 32), "closure"),
+                           ((4, 40, 40), "product")):
+        w = operand(shape, 0.5)
+        minplus.reset_launch_count()
+        got = ops.minplus_closure(w)
+        want = ref.minplus_closure_ref(
+            w, steps=minplus.closure_steps(shape[-1]))
+        torch.cuda.synchronize()
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        expected = ({"product": 0, "closure": 1} if variant == "closure"
+                    else {"product": minplus.closure_steps(shape[-1]),
+                          "closure": 0})
+        if minplus.closure_variant(shape[-1], dev) != variant \
+                or counts != expected:
+            raise AssertionError(f"closure of {shape}: launches {counts}, "
+                                 f"expected {expected}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"closure of {shape} ({variant}) != plain "
+                                 f"closure")
+        if variant == "closure":
+            closure_err = max(closure_err, float((got - want).abs().max()))
+        log(f"closure of a {list(shape)} stack through the {variant} "
+            f"kernel ({counts}) == plain closure bit for bit")
 
     # -- 3. the main path -----------------------------------------------------
     def large(device):
@@ -1018,22 +1046,35 @@ def main() -> int:
     net, batch = large(dev)
     minplus.reset_launch_count()
     t0 = time.perf_counter()
-    plans = {m: solvers.solve(net, batch, method=m, extract_paths=True)
-             for m in ("greedy", "lazy")}
+    plans, per_solve = {}, {}
+    for m in ("greedy", "lazy"):
+        before = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        plans[m] = solvers.solve(net, batch, method=m, extract_paths=True)
+        per_solve[m] = {e: minplus.launch_count(e) - before[e]
+                        for e in minplus.ENTRIES}
     sims = {m: p.simulate(net, batch) for m, p in plans.items()}
     resim = schedule.simulate(net, batch, plans["greedy"].assign,
                               plans["greedy"].order)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = minplus.launch_count()
+    launches = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
     log(f"main path (greedy + lazy solves, simulate, replay+simulate) on "
-        f"the card: {path_s:.2f} s wall, {launches} kernel launches")
+        f"the card: {path_s:.2f} s wall, kernel launches {launches}; per "
+        f"solve {per_solve}")
+    if per_solve["greedy"] != {"product": 0, "closure": 10}:
+        raise AssertionError(f"greedy solve: min-plus launches "
+                             f"{per_solve['greedy']}, expected 10 of the "
+                             f"closure kernel (one a round) and no product")
+    if per_solve["lazy"]["product"] != 0:
+        raise AssertionError(f"lazy solve: product launches "
+                             f"{per_solve['lazy']}")
     for m, p in plans.items():
         log(f"  {m}: order {p.order.tolist()} bound {p.bound():.6f} s "
             f"sim {sims[m].makespan:.6f} s, {p.meta['kernel_launches']} "
             f"launches, {p.meta['closure_builds']} closure builds")
-    if launches == 0:
-        raise AssertionError("the main path never launched the kernel")
+    if launches["closure"] == 0:
+        raise AssertionError("the main path never launched the closure "
+                             "kernel")
     for m, p in plans.items():
         if p.meta["kernel_launches"] == 0:
             raise AssertionError(f"{m} solve never launched the kernel")
@@ -1074,54 +1115,140 @@ def main() -> int:
     plain_ms = event_ms(lambda: ref.minplus_matmul_ref(a, b),
                         reps=30, inner=100)
     w = operand((62, 24, 24), 0.3)
-    closure_ms = event_ms(lambda: ops.minplus_closure(w), reps=30, inner=20)
+    steps = minplus.closure_steps(24)
+
+    def product_loop():     # the closure as five product launches
+        d = ref.force_zero_diagonal(w)
+        for _ in range(steps):
+            d = ops.minplus_matmul(d, d)
+        return d
+
+    if not torch.equal(product_loop(), minplus.minplus_closure_batched(w)):
+        raise AssertionError("closure kernel != the loop of products")
+    closure_t = {}
+    for name, fn in (("loop", product_loop),
+                     ("kernel", lambda: minplus.minplus_closure_batched(w)),
+                     ("kernel2", lambda: minplus.minplus_closure_batched(w)),
+                     ("loop2", product_loop)):
+        closure_t[name] = event_ms(fn, reps=30, inner=20)
+    closure_ms = min(closure_t["kernel"], closure_t["kernel2"])
+    closure_plain_ms = event_ms(
+        lambda: ref.minplus_closure_ref(w, steps=steps), reps=30, inner=20)
     solve_ms = []
-    n0 = minplus.launch_count()
+    n0 = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
     for _ in range(20):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solvers.solve(net, batch, method="greedy")
         torch.cuda.synchronize()
         solve_ms.append((time.perf_counter() - t0) * 1e3)
-    per_solve = (minplus.launch_count() - n0) // 20
+    solve_launches = {e: (minplus.launch_count(e) - n0[e]) / 20
+                      for e in minplus.ENTRIES}
+    if solve_launches != {"product": 0, "closure": 10}:
+        raise AssertionError(f"greedy solves: launches per solve "
+                             f"{solve_launches}")
     B, M, K, Nn = 62, 24, 24, 24
     bytes_moved = 4 * B * (M * K + K * Nn + M * Nn)
     ops_done = 2 * B * M * Nn * K
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops_done / PEAK_F32_OPS_PER_S * 1e3
+    # the closure: W read once, D written once; five squarings' operations
+    c_bytes = 2 * 4 * B * M * M / PEAK_BYTES_PER_S * 1e3
+    c_ops = steps * ops_done / PEAK_F32_OPS_PER_S * 1e3
     log(f"timings on {smi}:")
     log(f"  kernel [62,24,24]: {kernel_ms * 1e3:.2f} us; plain version "
         f"{plain_ms * 1e3:.2f} us; bound {max(t_bytes, t_ops) * 1e3:.4f} us "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-    log(f"  closure of [62,24,24] ({ops.closure_steps(24)} squarings): "
-        f"{closure_ms * 1e3:.2f} us")
+    log(f"  closure of [62,24,24] ({steps} squarings), loop / kernel / "
+        f"kernel / loop: " + " / ".join(
+            f"{closure_t[n] * 1e3:.2f}" for n in ("loop", "kernel",
+                                                  "kernel2", "loop2"))
+        + f" us; plain version {closure_plain_ms * 1e3:.2f} us; bound "
+        f"{max(c_bytes, c_ops) * 1e3:.4f} us "
+        f"({'bytes' if c_bytes >= c_ops else 'operations'})")
     log(f"  greedy solve, §V large instance: median "
         f"{statistics.median(solve_ms):.2f} ms over 20 (min "
-        f"{min(solve_ms):.2f}, max {max(solve_ms):.2f}); {per_solve} kernel "
-        f"launches per solve")
+        f"{min(solve_ms):.2f}, max {max(solve_ms):.2f}); launches per solve "
+        f"{solve_launches}")
 
     if profiler_works():
         profile_device("one greedy solve",
                        lambda: solvers.solve(net, batch, method="greedy"))
 
-    flash_entries = serving_phases(dev, smi)
-    bwd_entries = training_phases(dev, smi)
-
-    print(json.dumps({"kernels": [{
+    return [{
         "name": "minplus_matmul_batched",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
         "replaces": "src/repro/kernels/minplus.py:116 "
                     "(_minplus_kernel_batched; _minplus_kernel at :43 is "
-                    "its B=1 view)",
-        "launches": launches,
+                    "its B=1 view; off the main path for V <= 32)",
+        "launches": launches["product"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }] + flash_entries + bwd_entries}), flush=True)
+    }, {
+        "name": "minplus_closure_batched",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/minplus.cu",
+        "replaces": "src/repro/kernels/minplus.py:116 "
+                    "(_minplus_kernel_batched, squared closure_steps(V) "
+                    "times by ops.minplus_closure at "
+                    "src/repro/kernels/ops.py:141)",
+        "launches": launches["closure"],
+        "max_abs_err": closure_err,
+        "ms": closure_ms,
+        "plain_ms": closure_plain_ms,
+        "bound_ms": max(c_bytes, c_ops),
+        "bound_by": "bytes" if c_bytes >= c_ops else "operations",
+        "library_ms": None,
+    }]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash, minplus
+
+    dev = torch.device("cuda")
+
+    # -- 1. the card and the build ------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    t0 = time.perf_counter()
+    builds = [minplus.build] + [functools.partial(flash.build, stem)
+                                for stem in flash.STEMS]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = [pool.submit(b) for b in builds]         # one nvcc each
+        lib_paths = [f.result() for f in libs]
+    log(f"built {', '.join(p.name for p in lib_paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for build_log in (minplus.build_log, *flash.build_log.values()):
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
+    for stem, lib in zip(flash.STEMS, lib_paths[1:]):
+        if stem.endswith("_sm90"):
+            count_tensor_core_sass(stem, lib)
+    assert_no_spills("flash_bwd_dq_sm90", flash.build_log)
+
+    minplus_rows = routing_phases(dev, smi)
+    flash_entries = serving_phases(dev, smi)
+    bwd_entries = training_phases(dev, smi)
+
+    print(json.dumps({"kernels": minplus_rows + flash_entries
+                      + bwd_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

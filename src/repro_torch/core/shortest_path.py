@@ -132,8 +132,9 @@ def dedupe_plan(batch) -> DedupePlan:
 def closures_for_dedup(net: ComputeNetwork, plan: DedupePlan) -> Closures:
     """Uncounted batch-stacked closure build through a :class:`DedupePlan`.
 
-    Closes the [D, V, V] unique-scalar stack (one kernel launch per
-    squaring) and gathers back to [J, Lmax+1, V, V]; each matrix's closure
+    Closes the [D, V, V] unique-scalar stack (on CUDA one launch of the
+    closure kernel for V <= 32, else one product launch per squaring) and
+    gathers back to [J, Lmax+1, V, V]; each matrix's closure
     is computed independently, so the gathered stack is bitwise identical
     to closing every job's stack on its own.  ``w`` is dropped.
     """

@@ -8,10 +8,11 @@ Pallas kernels:
   ``_flash_fwd_lse_kernel`` (behind :func:`flash_fwd_lse`) and
   ``_flash_kernel`` (behind :func:`flash_attention_bhsd`, the same kernel
   without the logsumexp output);
-* ``csrc/flash_bwd.cu`` replaces ``_flash_dq_kernel`` (behind
-  :func:`flash_bwd_dq`), and ``csrc/flash_bwd_dkv_sm90.cu`` (tensor cores)
-  and ``csrc/flash_bwd.cu`` replace ``_flash_dkv_kernel`` (behind
-  :func:`flash_bwd_dkv`); :func:`flash_bwd` runs dq, then dk/dv.
+* ``csrc/flash_bwd_dq_sm90.cu`` (tensor cores) and ``csrc/flash_bwd.cu``
+  replace ``_flash_dq_kernel`` (behind :func:`flash_bwd_dq`), and
+  ``csrc/flash_bwd_dkv_sm90.cu`` (tensor cores) and ``csrc/flash_bwd.cu``
+  replace ``_flash_dkv_kernel`` (behind :func:`flash_bwd_dkv`);
+  :func:`flash_bwd` runs dq, then dk/dv.
 
 Which kernel a call takes is :func:`kernel_variant`'s rule on dtype and
 shape alone: ``"sm90"`` (the tensor-core kernel) for bfloat16 with
@@ -41,7 +42,8 @@ from . import ref
 from ._build import build_library
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-STEMS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_dkv_sm90")
+STEMS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_dq_sm90",
+         "flash_bwd_dkv_sm90")
 SOURCES = {stem: CSRC / f"{stem}.cu" for stem in STEMS}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -59,15 +61,14 @@ build_log: dict[str, str] = {}  # nvcc/ptxas output of this process's builds
 
 def kernel_variant(entry: str, dtype: torch.dtype, d: int, dv: int) -> str:
     """The kernel ``entry`` launches for a CUDA call: ``"sm90"`` (the
-    tensor-core kernel, ``csrc/flash_fwd_sm90.cu`` or
-    ``csrc/flash_bwd_dkv_sm90.cu``) for the forward entries and dk/dv at
+    tensor-core kernel, ``csrc/flash_fwd_sm90.cu``,
+    ``csrc/flash_bwd_dq_sm90.cu`` or ``csrc/flash_bwd_dkv_sm90.cu``) at
     bfloat16 with d = dv in {64, 128}; ``"simt"`` (the float32 CUDA-core
-    kernel of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise,
-    and always for dq.  A rule on dtype and shape only."""
+    kernel of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise.
+    The same rule for every entry, on dtype and shape only."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown flash entry {entry!r}")
-    if (entry != "flash_bwd_dq" and dtype == torch.bfloat16 and d == dv
-            and d in SM90_HEAD_DIMS):
+    if dtype == torch.bfloat16 and d == dv and d in SM90_HEAD_DIMS:
         return "sm90"
     return "simt"
 
@@ -110,6 +111,8 @@ def _load(stem: str) -> ctypes.CDLL:
             "flash_fwd_sm90": {
                 "flash_fwd_sm90": [vp] * 5 + [ci] * 3 + [cf, ci, vp],
                 "flash_sm90_probe": [vp] * 5 + [ci, vp]},
+            "flash_bwd_dq_sm90": {
+                "flash_bwd_dq_sm90": [vp] * 7 + [ci] * 3 + [cf, ci, vp]},
             "flash_bwd_dkv_sm90": {
                 "flash_bwd_dkv_sm90": [vp] * 8 + [ci] * 3 + [cf, ci, vp]},
         }[stem]
@@ -119,6 +122,7 @@ def _load(stem: str) -> ctypes.CDLL:
         errors = {"flash_fwd": "flash_error_string",
                   "flash_bwd": "flash_bwd_error_string",
                   "flash_fwd_sm90": "flash_sm90_error_string",
+                  "flash_bwd_dq_sm90": "flash_bwd_dq_sm90_error_string",
                   "flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90_error_string"}
         lib.error_string = getattr(lib, errors[stem])
         lib.error_string.argtypes = [ci]
@@ -300,10 +304,14 @@ def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs, scale: float,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if variant == "sm90":
-            _check_tma(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-            lib = _load("flash_bwd_dkv_sm90")
-            code = lib.flash_bwd_dkv_sm90(*ptrs, bh, s, d, float(scale),
-                                          int(causal), stream)
+            tma = dict(q=q, k=k, v=v, do=do)
+            if entry == "flash_bwd_dkv":    # lse and delta arrive by TMA too
+                tma.update(lse=lse, delta=delta)
+            _check_tma(**tma)
+            stem = f"{entry}_sm90"
+            lib = _load(stem)
+            code = getattr(lib, stem)(*ptrs, bh, s, d, float(scale),
+                                      int(causal), stream)
         else:
             lib = _load("flash_bwd")
             code = getattr(lib, entry)(*ptrs, _DTYPE_CODES[q.dtype], bh, s,
@@ -318,7 +326,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float, causal: bool = True) -> torch.Tensor:
     """dq [BH, S, d] in q's dtype, from the forward's lse and
     ``delta = rowsum(do * o)`` (both [BH, S] float32).  CPU tensors take
-    the plain version; CUDA tensors launch the dq kernel (one launch)."""
+    the plain version; CUDA tensors launch the dq kernel
+    :func:`kernel_variant` names (one launch)."""
     _check_bwd(q, k, v, do, lse, delta=delta)
     if q.device.type == "cpu":
         return ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale=scale,

@@ -5,6 +5,7 @@ Counterpart of ``repro.kernels.ops`` (``minplus_matmul``,
 no size threshold as in the reference's ``_PALLAS_MIN_DIM``: the device
 decides.  Every product on CUDA tensors goes through the hand-written
 kernels (:func:`repro_torch.kernels.minplus.minplus_matmul_batched`,
+:func:`repro_torch.kernels.minplus.minplus_closure_batched`,
 :func:`repro_torch.kernels.flash.flash_fwd_lse`,
 :func:`repro_torch.kernels.flash.flash_bwd`), whatever its size; a CPU
 tensor takes the kernel's plain version inside those wrappers.
@@ -14,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import flash, ref
-from .minplus import minplus_matmul_batched
+from .minplus import (closure_steps, closure_variant, minplus_closure_batched,
+                      minplus_matmul_batched)
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,12 +34,6 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (m, n))
 
 
-def closure_steps(n: int) -> int:
-    """Squarings that close any ``[n, n]`` weight matrix: after s squarings
-    every path of <= 2^s hops is covered, and simple paths have <= n-1."""
-    return max(1, (n - 1).bit_length())
-
-
 def minplus_closure(w: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest-path distances by repeated tropical squaring.
 
@@ -48,9 +44,16 @@ def minplus_closure(w: torch.Tensor) -> torch.Tensor:
     early once ``d == d (x) d``; squaring a fixed point reproduces it bit
     for bit, so the fixed count gives the same result and saves the host
     sync per squaring that the convergence test would cost on the GPU.
+    :func:`closure_variant` picks the way: one launch of the closure
+    kernel for the whole stack (CUDA, V <= 32), or one product per
+    squaring.
     """
+    v = w.shape[-1]
+    if closure_variant(v, w.device) == "closure":
+        flat = w.reshape(-1, v, v).contiguous()
+        return minplus_closure_batched(flat).view(w.shape)
     d = ref.force_zero_diagonal(w)
-    for _ in range(closure_steps(w.shape[-1])):
+    for _ in range(closure_steps(v)):
         d = minplus_matmul(d, d)
     return d
 

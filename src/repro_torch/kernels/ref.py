@@ -41,17 +41,19 @@ def force_zero_diagonal(w: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def minplus_closure_ref(w: torch.Tensor, *, num_nodes: int | None = None
-                        ) -> torch.Tensor:
+def minplus_closure_ref(w: torch.Tensor, *, num_nodes: int | None = None,
+                        steps: int | None = None) -> torch.Tensor:
     """All-pairs shortest path distances: the reflexive-transitive min-plus
     closure of the edge-weight matrix ``w`` (repeated tropical squaring).
 
     ``w[i, j]`` is the direct edge weight (a large finite INF when absent).
-    The diagonal is forced to 0 before squaring.
+    The diagonal is forced to 0 before squaring.  ``steps`` squarings, by
+    default the reference's ``ceil(log2(n - 1))``.
     """
     n = w.shape[-1] if num_nodes is None else num_nodes
     d = force_zero_diagonal(w)
-    steps = max(1, math.ceil(math.log2(max(n - 1, 2))))
+    if steps is None:
+        steps = max(1, math.ceil(math.log2(max(n - 1, 2))))
     for _ in range(steps):
         d = minplus_matmul_ref(d, d)
     return d

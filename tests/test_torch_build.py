@@ -25,7 +25,7 @@ def test_tag_follows_an_included_header(csrc):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {stem: _build.library_tag(csrc / f"{stem}.cu", FLAGS)
              for stem in flash.STEMS}
-    for stem in ("flash_fwd_sm90", "flash_bwd_dkv_sm90"):
+    for stem in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"):
         assert after[stem] != tags[stem]
     for stem in ("flash_fwd", "flash_bwd"):     # include no local header
         assert after[stem] == tags[stem]

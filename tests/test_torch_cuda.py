@@ -1,8 +1,8 @@
-"""The port on a CUDA card: the min-plus kernel against its plain version,
-the greedy solve on the card against the same solve on the CPU, bit for
-bit, and the flash-attention kernels (forward, dq, dk/dv; the
-tensor-core forward and dk/dv with their tile products alone) against
-their plain versions.  Marked ``cuda``; each test skips without a card.
+"""The port on a CUDA card: the min-plus product and closure kernels
+against their plain versions, the greedy solve on the card against the
+same solve on the CPU, bit for bit, and the flash-attention kernels
+(forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
+tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -52,6 +52,66 @@ def test_closure_and_wrapper_checks_on_card(cuda):
         minplus.minplus_matmul_batched(w, w.cpu())
     with pytest.raises(ValueError):
         minplus.minplus_matmul_batched(w.transpose(1, 2), w)
+
+
+@pytest.mark.parametrize("shape", [(64, 24, 24), (8, 32, 32), (5, 17, 17),
+                                   (3, 1, 1), (24, 24), (2, 3, 9, 9)])
+def test_closure_kernel_matches_plain_on_card(cuda, shape):
+    """One launch of the closure kernel closes the whole stack, bit for bit
+    the plain closure with closure_steps(V) squarings; negative diagonal
+    entries (never a fixed point) show that the counts agree."""
+    rng = np.random.default_rng(sum(shape))
+    w = _operand(rng, shape, cuda)
+    eye = torch.arange(shape[-1], device=cuda)
+    w[..., eye, eye] = torch.from_numpy(rng.uniform(
+        -2.0, 10.0, shape[:-1]).astype(np.float32)).to(cuda)
+    steps = ops.closure_steps(shape[-1])
+    minplus.reset_launch_count()
+    got = ops.minplus_closure(w)
+    direct = minplus.minplus_closure_batched(
+        w.reshape(-1, shape[-1], shape[-1]))
+    torch.cuda.synchronize()
+    assert (minplus.launch_count("closure"),
+            minplus.launch_count("product")) == (2, 0)
+    want = ref.minplus_closure_ref(w, steps=steps)
+    assert torch.equal(got, want)
+    assert torch.equal(direct.view(shape), want)
+
+
+def test_wide_closure_takes_the_product_loop_on_card(cuda):
+    """V = 40 is past the closure kernel's 32: ops.minplus_closure squares
+    with one product launch a step, and the closure wrapper raises."""
+    w = _operand(np.random.default_rng(40), (2, 40, 40), cuda)
+    minplus.reset_launch_count()
+    got = ops.minplus_closure(w)
+    torch.cuda.synchronize()
+    assert (minplus.launch_count("closure"),
+            minplus.launch_count("product")) == (0, ops.closure_steps(40))
+    assert torch.equal(got, ref.minplus_closure_ref(
+        w, steps=ops.closure_steps(40)))
+    with pytest.raises(ValueError, match="V <= 32"):
+        minplus.minplus_closure_batched(w)
+
+
+def test_greedy_solve_closes_each_round_in_one_launch_on_card(cuda):
+    """Ten jobs on the 24-node US backbone: one closure launch a greedy
+    round, no product launch, and the same plan as on the CPU."""
+    def solve(device):
+        net, _ = N.us_backbone(capacity_scale=1e-4, device=device)
+        jobs = [J.synthetic_job(f"s{i}", i, 23 - i, 4 + i, seed=i)
+                for i in range(10)]
+        return solvers.solve(net, J.batch_jobs(jobs, device=device),
+                             method="greedy")
+
+    minplus.reset_launch_count()
+    gpu = solve(cuda)
+    torch.cuda.synchronize()
+    assert gpu.meta["kernel_launches"] == 10
+    assert (minplus.launch_count("closure"),
+            minplus.launch_count("product")) == (10, 0)
+    cpu = solve("cpu")
+    assert gpu.order.tolist() == cpu.order.tolist()
+    assert gpu.bounds.tolist() == cpu.bounds.tolist()
 
 
 def test_greedy_on_card_matches_cpu(cuda):
@@ -193,9 +253,9 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, no_tf32, bh, s, d, dv,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 def test_sm90_kernels_match_plain_on_card(cuda, no_tf32, d, causal, s):
-    """The tensor-core forward (both entries) and dk/dv at bf16, d = dv in
-    {64, 128}, against their plain versions at the bf16 gates,
-    and the launches counted against the "sm90" variant."""
+    """The tensor-core forward (both entries), dq and dk/dv at bf16, d = dv
+    in {64, 128}, against their plain versions at the bf16 gates, and the
+    launches counted against the "sm90" variant."""
     from repro_torch.kernels import flash
     bh = 4 if s == 2048 else 3
     g = torch.Generator(device=cuda).manual_seed(s + d + causal)
@@ -208,16 +268,19 @@ def test_sm90_kernels_match_plain_on_card(cuda, no_tf32, d, causal, s):
     want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
     delta = ref.flash_bwd_delta(want_o, do)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    dq = flash.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
     torch.cuda.synchronize()
     want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, want_lse, delta,
                                              **kw)
-    assert o.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    want_dq = ref.flash_bwd_dq_ref(q, k, v, do, want_lse, delta, **kw)
+    assert o.dtype == dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
     _close(o, want_o, *FLASH_TOL[torch.bfloat16])
     _close(o2, want_o, *FLASH_TOL[torch.bfloat16])
     _close(lse, want_lse, 1e-5)
     _close(dk, want_dk, *BWD_TOL[torch.bfloat16])
     _close(dv, want_dv, *BWD_TOL[torch.bfloat16])
-    for entry in ("flash_fwd_lse", "flash_attention_bhsd", "flash_bwd_dkv"):
+    _close(dq, want_dq, *BWD_TOL[torch.bfloat16])
+    for entry in flash.ENTRIES:
         assert (flash.launch_count(entry, "sm90"),
                 flash.launch_count(entry, "simt")) == (1, 0)
 
@@ -241,8 +304,8 @@ def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d):
 
 def test_flash_bwd_is_deterministic_on_card(cuda):
     """No atomics: the gradients are the same bits on every run, through
-    the tensor-core dk/dv kernel at bf16, d = 64 and 128, and the CUDA-core
-    one at float32."""
+    the tensor-core dq and dk/dv kernels at bf16, d = 64 and 128, and the
+    CUDA-core ones at float32."""
     from repro_torch.kernels import flash
     g = torch.Generator(device=cuda).manual_seed(0)
     for d, dtype, variant in ((64, torch.bfloat16, "sm90"),
@@ -255,6 +318,7 @@ def test_flash_bwd_is_deterministic_on_card(cuda):
         a = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
         b = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
         assert flash.launch_count("flash_bwd_dkv", variant) == 2
+        assert flash.launch_count("flash_bwd_dq", variant) == 2
         for x, y in zip(a, b):
             assert torch.equal(x, y)
 
@@ -301,9 +365,8 @@ def test_train_step_launches_the_flash_kernels(cuda, no_tf32):
 
 def test_bf16_train_step_launches_the_tensor_core_kernels(cuda):
     """One bf16 train step with remat at head_dim 64 on the card: per layer
-    two forward launches and one dk/dv launch of the tensor-core ("sm90")
-    kernels, one dq launch of the CUDA-core kernel, none of the CUDA-core
-    forward or dk/dv; the loss is finite."""
+    two forward launches, one dq and one dk/dv launch of the tensor-core
+    ("sm90") kernels, none of the CUDA-core ones; the loss is finite."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
@@ -332,8 +395,8 @@ def test_bf16_train_step_launches_the_tensor_core_kernels(cuda):
                    ("flash_fwd_lse", "simt"): 0,
                    ("flash_attention_bhsd", "sm90"): 0,
                    ("flash_attention_bhsd", "simt"): 0,
-                   ("flash_bwd_dq", "sm90"): 0,
-                   ("flash_bwd_dq", "simt"): n,
+                   ("flash_bwd_dq", "sm90"): n,
+                   ("flash_bwd_dq", "simt"): 0,
                    ("flash_bwd_dkv", "sm90"): n,
                    ("flash_bwd_dkv", "simt"): 0}
     assert torch.isfinite(loss)

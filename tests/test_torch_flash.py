@@ -299,7 +299,10 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
     ("flash_attention_bhsd", "bfloat16", 64, 64, "sm90"),
     ("flash_bwd_dkv", "bfloat16", 64, 64, "sm90"),
     ("flash_bwd_dkv", "bfloat16", 128, 128, "sm90"),
-    ("flash_bwd_dq", "bfloat16", 64, 64, "simt"),
+    ("flash_bwd_dq", "bfloat16", 64, 64, "sm90"),
+    ("flash_bwd_dq", "bfloat16", 128, 128, "sm90"),
+    ("flash_bwd_dq", "float32", 64, 64, "simt"),
+    ("flash_bwd_dq", "bfloat16", 32, 32, "simt"),
     ("flash_fwd_lse", "float32", 64, 64, "simt"),
     ("flash_bwd_dkv", "float32", 128, 128, "simt"),
     ("flash_fwd_lse", "bfloat16", 192, 128, "simt"),
@@ -310,9 +313,9 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
     ("flash_fwd_lse", "bfloat16", 64, 32, "simt")])
 def test_kernel_variant_is_a_rule_on_dtype_and_shape(entry, dtype, d, dv,
                                                      variant):
-    """bf16 with d = dv in {64, 128} takes the tensor-core kernel for the
-    forward entries and dk/dv; everything else, and dq, the CUDA-core
-    kernel."""
+    """bf16 with d = dv in {64, 128} takes the tensor-core kernel for every
+    entry (the forward entries, dq and dk/dv); everything else the
+    CUDA-core kernel."""
     assert flash.kernel_variant(entry, TDT[dtype], d, dv) == variant
 
 
@@ -370,19 +373,20 @@ def test_flash_bwd_ref_builds_probabilities_once(monkeypatch):
 
 
 def split_operand_gate_ratios(bh=4, s=2048, d=64, seed=0):
-    """The numerics behind the tensor-core dk/dv kernel's split operands, on
-    the CPU: max |got - want| / (atol + rtol |want|) at the bf16 backward
-    gate (1e-3, 8e-3) for dk and dv, when P^T and dS^T enter their products
-    rounded to bf16 once ("once") or split into hi = bf16(x) and
-    lo = bf16(x - hi) ("split"); want is the float32 plain math, every
-    result rounded to bf16.  bf16 standard-normal q, k, v, do, causal."""
+    """The numerics behind the tensor-core backward kernels' split operands,
+    on the CPU: max |got - want| / (atol + rtol |want|) at the bf16
+    backward gate (1e-3, 8e-3) for dk, dv and dq, when P and dS enter
+    their products (P^T dO, dS^T Q, dS K) rounded to bf16 once ("once")
+    or split into hi = bf16(x) and lo = bf16(x - hi) ("split"); want is
+    the float32 plain math, every result rounded to bf16.  bf16
+    standard-normal q, k, v, do, causal."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (bh, s, d), dtype=np.float32)).bfloat16() for _ in range(4))
     scale = 1 / math.sqrt(d)
     o, lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale)
     delta = ref.flash_bwd_delta(o, do)
-    qf, _, dof, p, ds = ref._bwd_probs(q, k, v, do, lse, delta, scale, True)
+    qf, kf, dof, p, ds = ref._bwd_probs(q, k, v, do, lse, delta, scale, True)
 
     def bf(x):
         return x.bfloat16().float()
@@ -393,7 +397,8 @@ def split_operand_gate_ratios(bh=4, s=2048, d=64, seed=0):
     for name, form in forms.items():
         dk = bf(form(ds).transpose(-1, -2) @ qf)
         dv = bf(form(p).transpose(-1, -2) @ dof)
-        out[name] = dk, dv
+        dq = bf(form(ds) @ kf)
+        out[name] = dk, dv, dq
     ratios = {}
     for name in ("once", "split"):
         ratios[name] = tuple(
@@ -403,10 +408,22 @@ def split_operand_gate_ratios(bh=4, s=2048, d=64, seed=0):
 
 
 def test_split_operands_hold_the_bf16_backward_gate():
-    """Rounding P^T and dS^T to bf16 once breaks the bf16 dk/dv gate at the
-    training shape; the hi + lo split the tensor-core kernel issues holds
-    it (csrc/flash_bwd_dkv_sm90.cu's header)."""
+    """Rounding P^T and dS^T (dk/dv) or dS (dq) to bf16 once breaks the
+    bf16 gate at the training shape; the hi + lo split the tensor-core
+    kernels issue holds it (the headers of csrc/flash_bwd_dkv_sm90.cu and
+    csrc/flash_bwd_dq_sm90.cu): dk, dv, dq at 3.10, 3.79, 2.62 once and
+    0.60, 0.74, 0.54 split."""
     ratios = split_operand_gate_ratios()
+    assert min(ratios["once"]) > 1.5, ratios
+    assert max(ratios["split"]) < 1.0, ratios
+    assert ratios["once"][2] > 2.0 and ratios["split"][2] < 0.7, ratios
+
+
+def test_split_dq_operand_holds_the_bf16_gate_at_head_dim_128():
+    """The same at d = 128, the other head width of the tensor-core
+    kernels: dQ with dS rounded once reads 1.88 of the gate, split 0.68
+    (dk and dv 3.29, 3.83 once, 0.65, 0.64 split)."""
+    ratios = split_operand_gate_ratios(d=128)
     assert min(ratios["once"]) > 1.5, ratios
     assert max(ratios["split"]) < 1.0, ratios
 

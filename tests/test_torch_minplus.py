@@ -6,6 +6,8 @@ every comparison here is exact (``assert_array_equal``), including inputs
 with ``1e30`` (the finite INF sentinel) entries and ragged shapes.  The JAX
 side runs its broadcast oracle and its Pallas kernels in interpret mode.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -121,3 +123,65 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_closure_steps_cover_simple_paths():
     for n in range(1, 70):
         assert 2 ** ops.closure_steps(n) >= n - 1
+
+
+@pytest.mark.parametrize("v,device,variant", [
+    (24, "cuda", "closure"), (32, "cuda", "closure"), (1, "cuda", "closure"),
+    (33, "cuda", "product"), (40, "cuda", "product"),
+    (24, "cpu", "product"), (40, "cpu", "product")])
+def test_closure_variant_is_a_rule_on_shape_and_device(v, device, variant):
+    """On CUDA a stack of V <= 32 closes in one launch of the closure
+    kernel; wider matrices, and every CPU stack, take the loop of
+    products (kernel launches on CUDA, the plain product on the CPU)."""
+    assert minplus.closure_variant(v, torch.device(device)) == variant
+    assert minplus.closure_variant(v, device) == variant
+
+
+def _stack_with_negative_diagonals(rng, shape):
+    w = _operand(rng, shape, 0.5)
+    eye = np.arange(shape[-1])
+    w[..., eye, eye] = rng.uniform(-2.0, 10.0, shape[:-1])
+    return w
+
+
+@pytest.mark.parametrize("shape", [(62, 24, 24), (3, 32, 32), (4, 17, 17),
+                                   (2, 40, 40)])
+def test_closure_wrapper_plain_matches_reference(shape):
+    """The closure wrapper's plain version (the CPU path) equals the JAX
+    package's ``minplus_closure`` bit for bit, and so does
+    ``ops.minplus_closure``.  Negative diagonal entries survive the forced
+    diagonal and halve again at every squaring, so the stack never reaches
+    a fixed point: the result shows that both run exactly
+    ``closure_steps(V)`` squarings (5 at V = 17, where the reference's own
+    oracle ``ref.minplus_closure_ref`` runs ceil(log2(16)) = 4)."""
+    rng = np.random.default_rng(sum(shape))
+    w = _stack_with_negative_diagonals(rng, shape)
+    want = np.asarray(jops.minplus_closure(jnp.asarray(w)))
+    n0 = minplus.launch_count()
+    got = minplus.minplus_closure_batched(torch.from_numpy(w))
+    assert minplus.launch_count() == n0
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ops.minplus_closure(torch.from_numpy(w))
+                                  .numpy(), want)
+    np.testing.assert_array_equal(
+        minplus.minplus_closure_batched(torch.from_numpy(w[0])).numpy(),
+        want[0])
+    fewer = ref.minplus_closure_ref(torch.from_numpy(w)).numpy()
+    assert np.array_equal(fewer, want) == (
+        math.ceil(math.log2(shape[-1] - 1)) == ops.closure_steps(shape[-1]))
+
+
+def test_closure_wrapper_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="square"):
+        minplus.minplus_closure_batched(torch.zeros(2, 4, 4)[:, :3])
+    with pytest.raises(TypeError):
+        minplus.minplus_closure_batched(torch.zeros(2, 4, 4,
+                                                    dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        minplus.minplus_closure_batched(torch.zeros(2, 4, 4).transpose(1, 2))
+    minplus.reset_launch_count()
+    assert minplus.launch_count() == 0
+    assert minplus.launch_count("product") == minplus.launch_count(
+        "closure") == 0
+    with pytest.raises(KeyError):
+        minplus.launch_count("tropical")
