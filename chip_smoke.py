@@ -76,7 +76,30 @@ Phases, each of which fails the run by exception:
      backward of ``F.scaled_dot_product_attention`` (``autograd.grad`` of
      a saved forward) at the training shape, the host time of one call of
      each tensor-core backward kernel, the bf16 train step (tokens per
-     second), and profile one SDPA backward and one train step.
+     second), and profile one SDPA backward and one train step;
+ 13. drive the scenario catalog (``repro_torch.scenarios``): each of the
+     five topology families at its default traffic mix and seed 0, and a
+     48-node random-geometric mesh, through Poisson arrivals
+     (``arrivals.stream_times``), a greedy solve of the first 16 jobs
+     committed to a ``CommittedWork`` ledger, the exact drain (indexed
+     engine) to the 32nd arrival, a greedy solve of the next 16 against
+     the ledger's queued state, the forked predictions and both event
+     engines to completion; the min-plus counters are read and set to 0
+     around each solve (V <= 24: closure kernel launches, no product;
+     V = 48: product launches, no closure kernel); plans, queues and
+     completions equal the port's CPU run bit for bit, the engines agree
+     at rtol 1e-9, the predictions equal the realised completions, the
+     simulated window 2 stays within its bound; each greedy solve timed;
+ 14. minicpm-2b at full width (40 layers, d 2304, 36 heads over 36 KV
+     heads, random weights from seed 0): float32 with TF32 off at B=1,
+     S=512, flash against xla (40 launches of the CUDA-core forward), then
+     the bf16 prefill at B=4, S=2048 (40 launches of the tensor-core
+     forward at [144, 2048, 64], none of the CUDA-core one, finite
+     logits, peak memory); the tensor-core forward at that shape against
+     its plain version, timed with its bound and SDPA; the prefill timed
+     and profiled; then gemma3-1b at full width (head_dim 256, 5:1
+     local/global windows), a bf16 prefill at B=1, S=2048 with no flash
+     launch, timed, with its peak memory.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -1207,6 +1230,385 @@ def routing_phases(dev, smi: str) -> list[dict]:
     }]
 
 
+# -- phase 13: the scenario catalog on the card ------------------------------
+
+# (label, family, family options): the catalog's five families at their
+# default traffic mix, and a 48-node metro edge mesh (V > 32, so its
+# closures take the loop of product launches instead of the closure kernel)
+CATALOG = [("paper-small", "paper-small", {}),
+           ("us-backbone", "us-backbone", {}),
+           ("edge-cloud", "edge-cloud", {}),
+           ("random-geometric", "random-geometric", {}),
+           ("star", "star", {}),
+           ("random-geometric-48", "random-geometric", {"num_nodes": 48})]
+CATALOG_WINDOW = 16     # jobs per arrival window
+
+
+def catalog_run(family: str, opts: dict, device, take) -> dict:
+    """The serving sequence on one scenario at seed 0 and ``device``.
+
+    Poisson arrivals at 0.8 of the scenario's nominal rate; window 1 (the
+    first 16 jobs) solved greedy at the fresh state and committed to a
+    ``CommittedWork`` at the 16th arrival; the exact drain (indexed engine)
+    to the 32nd arrival; window 2 solved against the ledger's queued state
+    and committed; the forked predictions; then both engines to
+    completion.  ``take()`` reads the min-plus launch counters and sets
+    them to 0: it is called just before and just after each solve."""
+    from repro_torch.core import (arrivals, completions as C, jobs as J,
+                                  schedule, solvers)
+    from repro_torch.scenarios import make_scenario
+
+    w = CATALOG_WINDOW
+    sc = make_scenario(family, 0, device=device, **opts)
+    topo = sc.topology
+    rate = sc.nominal_rate(0.8)
+    times = list(arrivals.stream_times("poisson", np.random.default_rng(13),
+                                       64 / rate, rate=rate))
+    if len(times) < 2 * w:
+        raise AssertionError(f"{family}: {len(times)} arrivals, need {2 * w}")
+    jobs = sc.sample_jobs(np.random.default_rng(14), 2 * w)
+    names = [j.name for j in jobs]
+    t1, t2 = times[w - 1], times[2 * w - 1]
+    b1 = J.batch_jobs(jobs[:w], pad_to=sc.max_layers, device=device)
+    b2 = J.batch_jobs(jobs[w:], pad_to=sc.max_layers, device=device)
+    out = {"V": sc.num_nodes, "Lmax": sc.max_layers, "mix": sc.traffic.name,
+           "rate": rate, "times": (t1, t2), "solves": []}
+
+    def solve(batch, state):
+        take()
+        plan = solvers.solve(topo, batch, method="greedy", state=state,
+                             extract_paths=True)
+        out["solves"].append(take())
+        return plan
+
+    out["plan1"] = solve(b1, topo.empty_state(clock=t1))
+    led = C.CommittedWork.empty(sc.num_nodes, clock=t1).commit(
+        b1, out["plan1"], names=names[:w], at=t1)
+    out["queues"] = [led.queue_arrays()]
+    led = C.drain_exact(topo, led, t2 - t1, engine="indexed")
+    out["queues"].append(led.queue_arrays())
+    out["drained"] = led.completed
+    out["backlog2"] = led.backlog_seconds(topo)
+    qs2 = led.queue_state(device=topo.device)
+    out["plan2"] = plan2 = solve(b2, qs2)
+    led = led.commit(b2, plan2, names=names[w:], at=t2)
+    out["queues"].append(led.queue_arrays())
+    out["preds"] = C.predict_completions(topo, led)
+    out["done"] = {}
+    for engine in ("indexed", "ref"):
+        done, final = C.run_to_completion(topo, led, engine=engine)
+        out["done"][engine] = (done, final.completed)
+    sim = schedule.simulate(topo.view(qs2), b2, plan2.assign, plan2.order)
+    out["sim2"] = sim.makespan
+    out["timing_args"] = (topo, b2, qs2)
+    return out
+
+
+def catalog_phase(dev, smi: str) -> dict:
+    """Phase 13; returns the path's min-plus launches by entry."""
+    import torch
+    from repro_torch.core import solvers
+    from repro_torch.kernels import minplus
+
+    tally = dict.fromkeys(minplus.ENTRIES, 0)
+
+    def take():
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        minplus.reset_launch_count()
+        for e in counts:
+            tally[e] += counts[e]
+        return counts
+
+    minplus.reset_launch_count()
+    t0 = time.perf_counter()
+    runs = {label: catalog_run(family, opts, dev, take)
+            for label, family, opts in CATALOG}
+    torch.cuda.synchronize()
+    take()
+    path_s = time.perf_counter() - t0
+    log(f"catalog path on the card (6 scenarios x 2 windows of "
+        f"{CATALOG_WINDOW}, drains, predictions, both engines): "
+        f"{path_s:.2f} s wall, min-plus launches {tally}")
+
+    def no_take():
+        return {}
+
+    for label, family, opts in CATALOG:
+        r = runs[label]
+        cpu = catalog_run(family, opts, "cpu", no_take)
+        v = r["V"]
+        for i, counts in enumerate(r["solves"]):
+            if v <= minplus.CLOSURE_MAX_V:
+                ok = counts["product"] == 0 and counts["closure"] > 0
+            else:
+                ok = counts["closure"] == 0 and counts["product"] > 0
+            if not ok:
+                raise AssertionError(f"{label} (V={v}) solve {i + 1}: "
+                                     f"min-plus launches {counts}")
+        for key in ("plan1", "plan2"):
+            assert_plans_equal(r[key], cpu[key], f"{label} {key} card vs CPU")
+            if not r[key].makespan_bound < 1e29:
+                raise AssertionError(f"{label} {key}: unroutable job")
+        for i, (a, b) in enumerate(zip(r["queues"], cpu["queues"])):
+            for x, y in zip(a, b):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"{label}: ledger queues after "
+                                         f"step {i} differ card vs CPU")
+        for key in ("rate", "times", "drained", "backlog2", "preds",
+                    "done"):
+            if r[key] != cpu[key]:
+                raise AssertionError(f"{label}: {key} differs card vs CPU")
+        done_idx, done_ref = r["done"]["indexed"][0], r["done"]["ref"][0]
+        if set(done_idx) != set(done_ref) or len(done_idx) != 2 * \
+                CATALOG_WINDOW:
+            raise AssertionError(f"{label}: completed jobs differ")
+        worst = max(abs(done_idx[n] - done_ref[n]) / abs(done_ref[n])
+                    for n in done_ref)
+        if worst > 1e-9:
+            raise AssertionError(f"{label}: engines differ by rel {worst}")
+        if r["preds"] != done_idx:
+            raise AssertionError(f"{label}: predictions != realised "
+                                 f"completions")
+        bound2 = r["plan2"].makespan_bound
+        if not r["sim2"] <= bound2 * (1 + 1e-5):
+            raise AssertionError(f"{label}: simulated {r['sim2']} > bound "
+                                 f"{bound2}")
+        topo, b2, qs2 = r["timing_args"]
+        solvers.solve(topo, b2, method="greedy", state=qs2)      # warm
+        solve_ms = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solvers.solve(topo, b2, method="greedy", state=qs2)
+            torch.cuda.synchronize()
+            solve_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {label}:{r['mix']} V={v} Lmax={r['Lmax']}: windows at "
+            f"t={r['times'][0]:.6g}, {r['times'][1]:.6g} s; launches per "
+            f"solve {r['solves']}; {len(r['drained'])} done in the drain, "
+            f"window 2 solved at a backlog of {r['backlog2']:.6g} s; "
+            f"bound {bound2:.6g} s >= simulated {r['sim2']:.6g} s; engines "
+            f"agree to rel {worst:.1e}; predictions == realised; card == "
+            f"CPU bit for bit; greedy solve (window 2, queued) median "
+            f"{statistics.median(solve_ms):.2f} ms over 10 (min "
+            f"{min(solve_ms):.2f}, max {max(solve_ms):.2f}) on {smi}")
+    return tally
+
+
+# -- phase 14: minicpm-2b and gemma3-1b at full width ------------------------
+
+MINICPM_SHAPE = (144, 2048, 64)   # [B*H, S, hd] of one layer at B=4, S=2048
+
+
+def full_width_phase(dev, smi: str) -> dict:
+    """Phase 14; returns the launches, error and times of the forward
+    kernels on this path (the sm90 forward timed at MINICPM_SHAPE)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(14)
+    full = registry.config("minicpm_2b")
+    bh, s, d = MINICPM_SHAPE
+    if (4 * full.num_heads, full.head_dim, full.num_kv_heads) != \
+            (bh, d, full.num_heads):
+        raise AssertionError(f"minicpm-2b config: {full}")
+
+    # the float32 check: flash (the CUDA-core forward) against xla
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, attn_impl="flash")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                           device=dev)
+    log(f"minicpm-2b at full width: {M.param_count(params):,} params "
+        f"(random, seed 0), initialised in {time.perf_counter() - t0:.1f} s")
+    toks = rng.integers(0, full.vocab_size, (1, 512))
+    flash.reset_launch_count()
+    got = steps.make_prefill_step(cfg32, device=dev)(params,
+                                                     {"tokens": toks})
+    torch.cuda.synchronize()
+    f32_counts = flash_variant_counts(flash)
+    want = steps.make_prefill_step(dataclasses.replace(
+        cfg32, attn_impl="xla"), device=dev)(params, {"tokens": toks})
+    if f32_counts != {"flash_fwd_lse/simt": full.num_layers}:
+        raise AssertionError(f"minicpm-2b float32 prefill: flash launches "
+                             f"{f32_counts}, expected {full.num_layers} of "
+                             f"the CUDA-core forward")
+    if got.shape != (1, 512, full.padded_vocab):
+        raise AssertionError(f"prefill logits shape {tuple(got.shape)}")
+    e32 = max_err_within(got, want, 3e-4, "minicpm-2b float32 prefill flash "
+                         "vs xla")
+    log(f"minicpm-2b float32 prefill B=1 S=512 (TF32 off): flash vs xla "
+        f"logits max |diff| {e32:.3e} (tolerance 3e-4); launches "
+        f"{f32_counts}")
+    del got, want
+
+    # the bf16 prefill at B=4, S=2048: the same weights rounded to bf16
+    # (what init_params draws for dtype=bf16)
+    params = tree_map(lambda x: x.to(torch.bfloat16), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, attn_impl="flash")
+    step = steps.make_prefill_step(cfg, device=dev)
+    batch = {"tokens": rng.integers(0, full.vocab_size, (4, 2048))}
+    step(params, batch)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_count()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    bf16_counts = flash_variant_counts(flash)
+    peak = torch.cuda.max_memory_allocated()
+    if bf16_counts != {"flash_fwd_lse/sm90": full.num_layers}:
+        raise AssertionError(f"minicpm-2b bf16 prefill: flash launches "
+                             f"{bf16_counts}, expected {full.num_layers} of "
+                             f"the tensor-core forward and none of the "
+                             f"CUDA-core one")
+    if logits.shape != (4, 2048, full.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("minicpm-2b bf16 logits not finite or "
+                             "misshapen")
+    del logits
+    log(f"minicpm-2b bf16 prefill B=4 S=2048: flash launches {bf16_counts} "
+        f"at [{bh},{s},{d}]; logits finite; peak device memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    # the tensor-core forward at the path's shape against its plain version
+    q, k, v = flash_inputs(rng, bh, s, d, d, "bfloat16", dev)
+    scale = 1 / math.sqrt(d)
+    o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
+    want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
+                                             causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL["bfloat16"]
+    what = f"flash_fwd_lse (sm90) bf16 [{bh},{s},{d}] causal"
+    err = max(max_err_within(o, want_o, atol, what + " O", rtol),
+              max_err_within(lse, want_lse, LSE_TOL, what + " lse"))
+    log(f"{what}: max |O - plain| (and lse) {err:.3e}, share of the O gate "
+        f"{gate_share(o, want_o, atol, rtol):.3f}")
+    del o, lse, want_o, want_lse
+
+    t = {"sm90": event_ms(lambda: flash.flash_fwd_lse(q, k, v, scale=scale,
+                                                      causal=True),
+                          reps=10, inner=10),
+         "plain": event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v,
+                                                         scale=scale),
+                           reps=5, inner=2),
+         "sdpa": event_ms(lambda: F.scaled_dot_product_attention(
+             *(x.unflatten(0, (4, -1)) for x in (q, k, v)), is_causal=True,
+             scale=scale), reps=10, inner=10)}
+    bound = flash_bound(bh, s, d, d, "bfloat16", True, True)
+    prefill_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(prefill_ms)
+    log(f"timings on {smi}:")
+    log(f"  flash_fwd_lse (sm90) [{bh},{s},{d}] bf16 causal: "
+        f"{t['sm90'] * 1e3:.1f} us per call; bound {bound[0] * 1e3:.2f} us "
+        f"({bound[1]}); plain version {t['plain'] * 1e3:.1f} us; "
+        f"F.scaled_dot_product_attention (library yardstick) "
+        f"{t['sdpa'] * 1e3:.1f} us")
+    log(f"  prefill step minicpm-2b B=4 S=2048 bf16: median {med:.2f} ms "
+        f"over 5 (min {min(prefill_ms):.2f}, max {max(prefill_ms):.2f}); "
+        f"{4 * 2048 / med * 1e3:.0f} tokens/s; {full.num_layers} flash "
+        f"launches, {full.num_layers * t['sm90']:.2f} ms of them by the "
+        f"kernel's time per call")
+    if profiler_works():
+        profile_device("one minicpm-2b prefill (B=4, S=2048, bf16)",
+                       lambda: step(params, batch), top=10)
+    del params, step, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gemma3-1b: head_dim 256 and a 5:1 local/global pattern; every layer
+    # takes the windowed path (as the reference), never the flash kernel,
+    # even when the config asks for it
+    gcfg = dataclasses.replace(registry.config("gemma3_1b"),
+                               attn_impl="flash")
+    gparams = M.init_params(gcfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    gstep = steps.make_prefill_step(gcfg, device=dev)
+    gbatch = {"tokens": rng.integers(0, gcfg.vocab_size, (1, 2048))}
+    gstep(gparams, gbatch)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_count()
+    glogits = gstep(gparams, gbatch)
+    torch.cuda.synchronize()
+    gpeak = torch.cuda.max_memory_allocated()
+    if flash_variant_counts(flash):
+        raise AssertionError(f"gemma3-1b prefill launched flash: "
+                             f"{flash_variant_counts(flash)}")
+    if glogits.shape != (1, 2048, gcfg.padded_vocab) \
+            or not bool(torch.isfinite(glogits).all()):
+        raise AssertionError("gemma3-1b logits not finite or misshapen")
+    del glogits
+    gms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gstep(gparams, gbatch)
+        torch.cuda.synchronize()
+        gms.append((time.perf_counter() - t0) * 1e3)
+    log(f"gemma3-1b at full width: {M.param_count(gparams):,} params; bf16 "
+        f"prefill B=1 S=2048: 0 flash launches (windowed path), logits "
+        f"finite; median {statistics.median(gms):.2f} ms over 5 (min "
+        f"{min(gms):.2f}, max {max(gms):.2f}) on {smi}; peak device memory "
+        f"{gpeak / 2**30:.2f} GiB")
+    del gparams, gstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32": f32_counts.get("flash_fwd_lse/simt", 0),
+            "bf16": bf16_counts.get("flash_fwd_lse/sm90", 0),
+            "err": err, "ms": t["sm90"], "plain_ms": t["plain"],
+            "sdpa_ms": t["sdpa"], "bound": bound}
+
+
+def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
+               catalog: dict, wide: dict) -> list[dict]:
+    """The kernels line.  The kernels on this run's newest paths report
+    those paths' launches (the catalog's solves, minicpm-2b's prefills);
+    every path's count stands in "launches_by_path", and "timed_at" names
+    the shape of the row's times."""
+    from repro_torch.kernels import minplus
+
+    for row, entry in zip(minplus_rows, minplus.ENTRIES):
+        row["launches_by_path"] = {"§V large solves (phase 3)":
+                                   row["launches"],
+                                   "catalog (phase 13)": catalog[entry]}
+        row["launches"] = catalog[entry]
+        row["timed_at"] = "[62,24,24] f32"
+    for row in flash_rows:
+        row["timed_at"] = f"[{','.join(map(str, PREFILL_SHAPE))}] bf16"
+        if row["name"] == "flash_fwd_lse":
+            row["launches_by_path"] = {
+                "smollm-135m float32 prefill (phase 6)": row["launches"],
+                "minicpm-2b float32 prefill (phase 14)": wide["f32"]}
+            row["launches"] = wide["f32"]
+        elif row["name"] == "flash_fwd_lse_sm90":
+            row["launches_by_path"] = {
+                "smollm-135m bf16 prefill (phase 6)": row["launches"],
+                "minicpm-2b bf16 prefill (phase 14)": wide["bf16"]}
+            row.update(launches=wide["bf16"],
+                       max_abs_err=max(row["max_abs_err"], wide["err"]),
+                       ms=wide["ms"], plain_ms=wide["plain_ms"],
+                       bound_ms=wide["bound"][0], bound_by=wide["bound"][1],
+                       library_ms=wide["sdpa_ms"],
+                       timed_at=f"[{','.join(map(str, MINICPM_SHAPE))}] "
+                                f"bf16")
+    return minplus_rows + flash_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1217,6 +1619,7 @@ def main() -> int:
     from repro_torch.kernels import flash, minplus
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # -- 1. the card and the build ------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1246,9 +1649,13 @@ def main() -> int:
     minplus_rows = routing_phases(dev, smi)
     flash_entries = serving_phases(dev, smi)
     bwd_entries = training_phases(dev, smi)
+    catalog = catalog_phase(dev, smi)
+    wide = full_width_phase(dev, smi)
 
-    print(json.dumps({"kernels": minplus_rows + flash_entries
-                      + bwd_entries}), flush=True)
+    rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
+                      wide)
+    log(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

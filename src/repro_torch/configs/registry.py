@@ -1,15 +1,20 @@
-"""--arch registry of the port: the ported LM architectures and the
-paper's own evaluation models.
+"""--arch registry of the port: the 10 LM architectures and the paper's own
+evaluation models.
 
-Counterpart of ``repro.configs.registry``.  The LM architectures ported so
-far are the dense ones the serving path runs; asking for any other raises
-``KeyError`` naming what is ported.
+Counterpart of ``repro.configs.registry``.  Every architecture has its
+``config()``, ``smoke_config()`` and ``cost_profile()``; the models of the
+non-dense families are not ported yet (``models.model.init_params`` raises
+for them).
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["olmo_1b", "smollm_135m"]
+ARCH_IDS = [
+    "olmo_1b", "smollm_135m", "minicpm_2b", "gemma3_1b", "xlstm_125m",
+    "olmoe_1b_7b", "deepseek_v2_236b", "whisper_base", "zamba2_2_7b",
+    "phi3_vision_4_2b",
+]
 
 # paper's own evaluation models (cost profiles only — conv nets)
 PAPER_MODELS = ["vgg19", "resnet34"]
@@ -18,8 +23,7 @@ PAPER_MODELS = ["vgg19", "resnet34"]
 def get(arch: str):
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS + PAPER_MODELS:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch; "
-                       f"ported: {ARCH_IDS + PAPER_MODELS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + PAPER_MODELS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -214,7 +214,7 @@ _US_BACKBONE_EDGES = [
 ]
 
 
-def us_backbone(*, capacity_scale: float = 1.0,
+def us_backbone(*, capacity_scale: float = 1.0, seed: int = 0,
                 device: str | torch.device = "cuda",
                 ) -> tuple[ComputeNetwork, list[str]]:
     """The 24-node US backbone of Fig. 4.
@@ -222,6 +222,8 @@ def us_backbone(*, capacity_scale: float = 1.0,
     Node compute capacities follow the paper: [30, 50, 200, 100, 70] repeating
     in increasing node order. Link capacities use the same {125, 375} MB/s mix
     as the small topology (deterministic per-edge choice by parity of u+v).
+    ``seed`` is accepted and ignored, as in the reference: the topology is
+    fixed.
     """
     G = 1e9
     MB = 1e6

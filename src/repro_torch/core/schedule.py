@@ -1,7 +1,6 @@
 """The *actual system*: an event-driven, preemptive-priority simulator.
 
-Counterpart of ``repro.core.schedule`` (the ``"ref"`` engine; the indexed
-engine is a later slice).  The routing formulation minimizes an upper bound
+Counterpart of ``repro.core.schedule``.  The routing formulation minimizes an upper bound
 on completion time (the fictitious system of §III-B).  This module measures
 what actually happens when the routed jobs run: every resource (compute
 node, directed link) serves the highest-priority arrived task, preempting
@@ -14,7 +13,11 @@ fictitious bounds, the explicit per-layer transfer paths (chosen against
 the queue state seen at that job's priority level), and the final queue
 state; its closures go through the min-plus kernel on the network's
 device.  The event loop itself is host-side numpy float64, as in the
-reference.
+reference, with its two engines: ``engine="ref"``
+(:func:`run_event_loop_ref`, the linear scan, default for the one-shot
+:func:`simulate`) and ``engine="indexed"``
+(:mod:`repro_torch.core.eventsim`, O(log) per event and persistent across
+drain windows; the committed-work ledger runs on it).
 
 Event-time comparisons share one tolerance discipline: :func:`time_eps`
 (relative to the clock) and :func:`work_eps` (relative to a stage's work).
@@ -252,25 +255,34 @@ def run_event_loop(tasks: list[TaskRun], mu_node: np.ndarray,
                    engine: str = "ref", down: frozenset | tuple = ()) -> float:
     """Run the preempt-resume loop with the chosen engine.
 
-    Only ``engine="ref"`` (:func:`run_event_loop_ref`) is ported; the
-    reference's ``"indexed"`` engine is a later slice.
+    ``engine="ref"`` (default) is the linear-scan loop;
+    ``engine="indexed"`` routes through the O(log)-per-event engine of
+    :mod:`repro_torch.core.eventsim` — same semantics, same tolerance
+    discipline, event times equal up to float accumulation order.
+    ``down`` lists resource keys failed for the whole window (both engines
+    honour it).
     """
+    if engine == "indexed":
+        from . import eventsim
+        return eventsim.run_event_loop_indexed(
+            tasks, mu_node, mu_link, t=t, t_end=t_end, guard=guard,
+            down=tuple(down))
     if engine != "ref":
-        raise ValueError(f"engine must be 'ref' (the only one ported), "
-                         f"got {engine!r}")
+        raise ValueError(f"engine must be 'ref' or 'indexed', got {engine!r}")
     return run_event_loop_ref(tasks, mu_node, mu_link, t=t, t_end=t_end,
                               guard=guard, down=down)
 
 
 def simulate(net: ComputeNetwork, batch: JobBatch, assign, order=None,
              paths: dict[int, list[list[tuple[int, int]]]] | None = None,
-             ) -> SimResult:
+             engine: str = "ref") -> SimResult:
     """Event-driven simulation of the routed jobs in the actual system.
 
     ``assign`` may be a :class:`~repro_torch.core.plan.Plan` (then
     ``order`` must be omitted and the plan's stored paths, if any, are
     used).  Without paths they are derived by :func:`replay_solution`
-    against ``net`` with its queues reset.
+    against ``net`` with its queues reset.  ``engine`` picks the event
+    loop; the default ``"ref"`` is the reference's default.
     """
     from .plan import Plan
     if isinstance(assign, Plan) and paths is None:
@@ -285,6 +297,6 @@ def simulate(net: ComputeNetwork, batch: JobBatch, assign, order=None,
     prio_of = {int(order[p]): p for p in range(len(order))}
     stages = job_stages(batch, assign, paths)
     tasks = [TaskRun(stages=stages[j], prio=prio_of[j]) for j in range(J)]
-    run_event_loop(tasks, mu_node, mu_link)
+    run_event_loop(tasks, mu_node, mu_link, engine=engine)
     completion = np.array([task.completion for task in tasks], np.float64)
     return SimResult(completion=completion, makespan=float(np.max(completion)))

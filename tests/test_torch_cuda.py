@@ -1,6 +1,7 @@
 """The port on a CUDA card: the min-plus product and closure kernels
 against their plain versions, the greedy solve on the card against the
-same solve on the CPU, bit for bit, and the flash-attention kernels
+same solve on the CPU, bit for bit (the §V instance and a window of each
+catalog scenario), and the flash-attention kernels
 (forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
 tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
@@ -129,6 +130,58 @@ def test_greedy_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(gpu.assign, cpu.assign)
     assert torch.equal(gpu.net.q_link.cpu(), cpu.net.q_link)
     assert gpu.paths == cpu.paths
+
+
+@pytest.mark.parametrize("family,opts", [
+    ("paper-small", {}), ("us-backbone", {}), ("edge-cloud", {}),
+    ("random-geometric", {}), ("star", {}),
+    ("random-geometric", {"num_nodes": 48})])
+def test_catalog_solve_on_card_matches_cpu(cuda, family, opts):
+    """A window of the scenario catalog solved on the card, fresh and at
+    the queued state a committed, exactly drained first window leaves:
+    the CPU's plans and ledger bit for bit; V <= 32 closes each round in
+    one closure launch, V = 48 through the loop of products."""
+    from repro_torch.core import completions as C
+    from repro_torch.scenarios import make_scenario
+
+    def run(device):
+        sc = make_scenario(family, 0, device=device, **opts)
+        rng = np.random.default_rng(5)
+        jobs1, jobs2 = sc.sample_jobs(rng, 4), sc.sample_jobs(rng, 4)
+        b1, b2 = (J.batch_jobs(j, pad_to=sc.max_layers, device=device)
+                  for j in (jobs1, jobs2))
+        minplus.reset_launch_count()
+        p1 = solvers.solve(sc.topology, b1, method="greedy",
+                           state=sc.topology.empty_state(),
+                           extract_paths=True)
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        led = C.CommittedWork.empty(sc.num_nodes).commit(
+            b1, p1, names=[j.name for j in jobs1])
+        led = C.drain_exact(sc.topology, led, 0.5 * p1.makespan_bound)
+        p2 = solvers.solve(sc.topology, b2, method="greedy",
+                           state=led.queue_state(device=device),
+                           extract_paths=True)
+        done, _ = C.run_to_completion(sc.topology, led.commit(
+            b2, p2, names=[j.name for j in jobs2]))
+        return sc.num_nodes, counts, (p1, p2), led, done
+
+    v, counts, gpu, gled, gdone = run(cuda)
+    torch.cuda.synchronize()
+    _, _, cpu, cled, cdone = run("cpu")
+    if v <= minplus.CLOSURE_MAX_V:
+        assert counts == {"product": 0, "closure": 4}
+    else:
+        assert counts["closure"] == 0 and counts["product"] == \
+            4 * minplus.closure_steps(v)
+    for a, b in zip(gpu, cpu):
+        assert a.order.tolist() == b.order.tolist()
+        assert a.bounds.tolist() == b.bounds.tolist()
+        np.testing.assert_array_equal(a.assign, b.assign)
+        assert torch.equal(a.net.q_link.cpu(), b.net.q_link)
+        assert a.paths == b.paths
+    for x, y in zip(gled.queue_arrays(), cled.queue_arrays()):
+        np.testing.assert_array_equal(x, y)
+    assert gdone == cdone
 
 
 # -- flash attention ----------------------------------------------------------

@@ -150,8 +150,15 @@ def test_registry_lists_only_ported_solvers():
     _, _, tnet, tbatch = _instance("quick")
     with pytest.raises(ValueError, match="available: greedy, greedy_ref, lazy"):
         tsolve(tnet, tbatch, method="sa")
-    with pytest.raises(KeyError, match="ported"):
-        troute.build_jobs("gemma3_1b:1", 5, 0)
+    # every registry arch builds the reference's jobs; unknown ones raise
+    spec = "gemma3_1b:1,deepseek_v2_236b:1,vgg19:1"
+    for got, want in zip(troute.build_jobs(spec, 5, 0),
+                         jroute.build_jobs(spec, 5, 0)):
+        assert (got.name, got.src, got.dst) == (want.name, want.src, want.dst)
+        np.testing.assert_array_equal(got.comp, want.comp)
+        np.testing.assert_array_equal(got.data, want.data)
+    with pytest.raises(KeyError, match="unknown arch"):
+        troute.build_jobs("llama_70b:1", 5, 0)
 
 
 @pytest.mark.parametrize("seed,num_jobs,with_queues", [

@@ -26,6 +26,9 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.optim.adamw, repro_torch.optim.schedules\n"
             "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
             "import repro_torch.distributed.fault\n"
+            "import repro_torch.scenarios, repro_torch.configs.shapes\n"
+            "import repro_torch.core.eventsim, repro_torch.core.arrivals\n"
+            "import repro_torch.core.completions\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -55,9 +58,11 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import registry
     from repro_torch.core import Plan, jobs, network
+    from repro_torch.core.completions import CommittedWork
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.launch import route, serve, steps, train
     from repro_torch.models import model
+    from repro_torch.scenarios import make_scenario
     from repro_torch.serving.engine import DecodeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -67,6 +72,8 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: network.make_network(2, [(0, 1, 1.0)], [1.0, 1.0]),
         lambda: network.small_topology(),
         lambda: network.us_backbone(capacity_scale=1e-4),
+        lambda: make_scenario("star"),
+        lambda: CommittedWork.empty(3).queue_state(),
         lambda: jobs.batch_jobs([job]),
         lambda: Plan.from_dict({"assign": [[0]], "priority": [0],
                                 "bounds": [1.0]}),
