@@ -99,7 +99,26 @@ Phases, each of which fails the run by exception:
      its plain version, timed with its bound and SDPA; the prefill timed
      and profiled; then gemma3-1b at full width (head_dim 256, 5:1
      local/global windows), a bf16 prefill at B=1, S=2048 with no flash
-     launch, timed, with its peak memory.
+     launch, timed, with its peak memory;
+ 15. drive the rest of serving (``repro_torch.serving``: the online
+     scheduler, the exact drain, the stream, the fault layer), once on
+     the card and once on the CPU, every result but the walls equal:
+     the fluid ``run_online`` on paper-small (its 24 backlogs and
+     latencies equal the golden ones with ``==``) and the stream at
+     delta = 0, B = 1 against it; exact online runs on edge-cloud:lm and
+     us-backbone:paper (48 arrivals of 4 jobs at 0.9 of nominal load,
+     commit log, finished: completions equal the replay, every bound
+     holds, the share of submits that met a real queue printed and held
+     at >= 1/2); ``schedule_windows`` against sequential
+     ``schedule_jobs``; a batched stream whose solves take up to four
+     queued windows; the five fault families under requeue and migrate
+     on edge-cloud:lm (replay parity; the transient node's post-recovery
+     backlog bounded, as the JAX package's fault gate holds it); the
+     min-plus counters set to 0 around each path and each solve (one
+     closure launch a job for greedy and migrate, no product); the
+     per-submit, per-window and migrate solve walls, a profile of one
+     window solve, and a stream under measured solver latency after
+     warm-up (printed).
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -109,6 +128,7 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import functools
@@ -1574,19 +1594,337 @@ def full_width_phase(dev, smi: str) -> dict:
             "sdpa_ms": t["sdpa"], "bound": bound}
 
 
+# -- phase 15: the rest of serving on the card -------------------------------
+
+# The fluid online trajectory on paper-small at 0.6 of nominal load, seed 7,
+# 24 arrivals, captured from the JAX package before its committed-work
+# ledger landed (the JAX package's benchmarks/common.py:FLUID_GOLD_*,
+# copied here: this script imports nothing of the JAX package)
+FLUID_GOLD_BACKLOGS = [
+    0.03644493898639235, 0.03644493898639235, 0.03644493898639235,
+    0.19632062866064648, 0.19005575557234186, 0.19632062866064648,
+    0.23074857432573082, 0.03644493898639235, 0.03644493898639235,
+    0.03644493898639235, 0.19632062866064648, 0.16821560664505564,
+    0.03644493898639235, 0.19632062866064648, 0.19632062866064648,
+    0.1868424844665341, 0.03644493898639235, 0.03644493898639235,
+    0.03644493898639235, 0.03644493898639235, 0.05736757877488801,
+    0.24127095278122912, 0.03644493898639235, 0.03644493898639235,
+]
+FLUID_GOLD_LATENCIES = [
+    0.07911159098148346, 0.07911159098148346, 0.07911159098148346,
+    0.2389872968196869, 0.23272264003753662, 0.2389872968196869,
+    0.2840821146965027, 0.07911159098148346, 0.07911159098148346,
+    0.07911159098148346, 0.2389872968196869, 0.21088248491287231,
+    0.07911159098148346, 0.2389872968196869, 0.2389872968196869,
+    0.2295093536376953, 0.07911159098148346, 0.07911159098148346,
+    0.07911159098148346, 0.07911159098148346, 0.11070089042186737,
+    0.2879980802536011, 0.07911159098148346, 0.07911159098148346,
+]
+# exact online runs: (family at its default mix, load), arrivals, jobs each
+ONLINE_CASES = (("edge-cloud", 0.9), ("us-backbone", 0.9))
+ONLINE_ARRIVALS, ONLINE_BATCH = 48, 4
+# faults: the JAX package's fault_bench --smoke case (edge-cloud:lm, 32
+# arrivals at 0.85 of nominal, seed 7), every family, two policies
+FAULT_ARRIVALS, FAULT_LOAD, FAULT_SEED = 32, 0.85, 7
+FAULT_POLICIES = ("requeue", "migrate")
+REPLAY_EPS_S = 1e-6
+# the fused stream: paper-small at 1.5 of nominal, a 0.5-gap window of up to
+# 8 requests, a solver modeled at 4 gaps a solve, so windows queue up and
+# each solve takes up to 4 of them through schedule_windows
+STREAM_ARRIVALS = 24
+
+
+def wall_free(tr) -> dict:
+    """A trace's ``to_dict()`` through JSON, wall-clock fields taken out."""
+    d = json.loads(json.dumps(tr.to_dict()))
+    for w in d.get("window_records", ()):
+        w.pop("solve_wall_s")
+    d.pop("compile_wall_s", None)
+    return d
+
+
+def record_rows(tr) -> list:
+    return [(r.time, r.names, r.latencies, r.backlog_before, r.backlog_after)
+            for r in tr.records]
+
+
+def post_recovery(tr, recover_t: float, mean_service_s: float):
+    """fault_bench's boundedness reading: the backlog slope from the first
+    to the last commit at or after the recovery, and the last backlog;
+    bounded when the slope is negative or the last backlog is under one
+    mean service time."""
+    post = [(r.time, r.backlog_after) for r in tr.records
+            if r.time >= recover_t]
+    slope = None
+    if len(post) >= 2:
+        (t0, b0), (t1, b1) = post[0], post[-1]
+        slope = (b1 - b0) / max(t1 - t0, 1e-9)
+    final = post[-1][1] if post else None
+    bounded = ((slope is not None and slope < 0)
+               or (final is not None and final <= mean_service_s))
+    return slope, final, bounded
+
+
+def serving_stack_run(device, take) -> dict:
+    """The serving stack on ``device``; every field but the walls is
+    compared card against CPU.  ``take()`` reads the min-plus launch
+    counters and sets them to 0."""
+    from repro_torch.core import jobs as J, solvers
+    from repro_torch.scenarios import make_scenario
+    from repro_torch.serving import faults as F
+    from repro_torch.serving.online import OnlineScheduler, run_online
+    from repro_torch.serving.stream import run_stream
+
+    out = {"launches": {}, "walls": {}}
+
+    def scenario(name):
+        return make_scenario(name, seed=0, device=device)
+
+    # the fluid gold, and the stream at delta = 0, B = 1 against it
+    rate = scenario("paper-small").nominal_rate(0.6)
+    kw = dict(horizon=24 / rate, seed=7, rate=rate)
+    take()
+    gold = run_online(scenario("paper-small"), **kw)
+    out["launches"]["fluid gold"] = take()
+    out["gold"] = (gold.backlogs.tolist(), gold.latencies.tolist())
+    serial = run_stream(scenario("paper-small"), window_s=0.0, max_batch=1,
+                        solver_latency=0.0, **kw)
+    take()
+    out["stream_serial"] = (record_rows(serial) == record_rows(gold)
+                            and serial.events == gold.events)
+    out["gold_trace"] = wall_free(gold)
+
+    # exact online runs with real queues
+    for family, load in ONLINE_CASES:
+        sc = scenario(family)
+        rate = sc.nominal_rate(load)
+        take()
+        tr = run_online(sc, horizon=ONLINE_ARRIVALS / rate, seed=7,
+                        rate=rate, batch_size=ONLINE_BATCH, drain="exact",
+                        track_commits=True, finish=True,
+                        sim_engine="indexed")
+        out["launches"][f"online {family}"] = take()
+        jobs = sum(len(r.names) for r in tr.records)
+        gap = max(abs(tr.completions[n] - tr.replay_completions[n])
+                  - 1e-9 * abs(tr.replay_completions[n])
+                  for n in tr.replay_completions)
+        if set(tr.completions) != set(tr.replay_completions) or gap > 1e-9:
+            raise AssertionError(f"online {family}: completions != replay")
+        act, bound = tr.actual_latencies(), tr.latencies
+        if act.size != bound.size or not (
+                act <= bound * (1 + 1e-6) + 1e-9).all():
+            raise AssertionError(f"online {family}: a bound fails")
+        out[f"online {family}"] = wall_free(tr)
+        out["walls"][f"online {family}"] = [r.solve_s for r in tr.records]
+        out[f"share {family}"] = (
+            sum(r.backlog_before > 0 for r in tr.records) / len(tr.records),
+            len(tr.records), jobs, tr.summary()["max_backlog_s"])
+
+    # per-solve launch counts: a greedy window and a migrate solve
+    sc = scenario("us-backbone")
+    wjobs = sc.sample_jobs(np.random.default_rng(3), 8)
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    sched.submit_jobs(0.0, wjobs[:4], pad_to=sc.max_layers)
+    sched.advance_to(0.5 * sched.last_plan.makespan_bound)
+    window = J.batch_jobs(wjobs[4:], pad_to=sc.max_layers, device=device)
+    take()
+    plan = solvers.solve(sched._effective_topology(), window,
+                         state=sched.state)
+    out["launches"]["greedy window of 4"] = take()
+    mig = solvers.solve(sched._effective_topology(), window,
+                        method="migrate", state=sched.state)
+    out["launches"]["migrate of 4"] = take()
+    out["window_plans"] = [(p.order.tolist(), p.assign.tolist(),
+                            p.bounds.tolist()) for p in (plan, mig)]
+    out["timing_args"] = (sched, window)
+
+    # schedule_windows == W schedule_jobs calls; the fused stream
+    sc = scenario("edge-cloud")
+    fused = OnlineScheduler(sc.topology, drain="exact")
+    seq = OnlineScheduler(sc.topology, drain="exact")
+    sjobs = sc.sample_jobs(np.random.default_rng(2), 7)
+    wins = [sjobs[:2], sjobs[2:3], sjobs[3:]]
+    got = fused.submit_windows(0.0, wins, pad_to=sc.max_layers)
+    want = [seq.schedule_jobs(w, pad_to=sc.max_layers) for w in wins]
+    out["windows_equal"] = (
+        [[(p.job_name, p.priority, p.bound_s, p.assign.tolist())
+          for p in w] for w in got]
+        == [[(p.job_name, p.priority, p.bound_s, p.assign.tolist())
+             for p in w] for w in want]
+        and fused.ledger.queue_arrays()[1].tolist()
+        == seq.ledger.queue_arrays()[1].tolist())
+    rate = scenario("paper-small").nominal_rate(1.5)
+    take()
+    tr = run_stream(scenario("paper-small"),
+                    horizon=STREAM_ARRIVALS / rate, seed=4, rate=rate,
+                    window_s=0.5 / rate, max_batch=8, fuse_windows=4,
+                    solver_latency=4 / rate, drain="exact",
+                    track_commits=True, finish=True)
+    out["launches"]["fused stream"] = take()
+    per_commit = collections.Counter(w.commit_s for w in tr.windows)
+    if max(per_commit.values()) < 2:
+        raise AssertionError("fused stream: no solve took two windows")
+    out["fused stream"] = wall_free(tr)
+    out["fused per solve"] = max(per_commit.values())
+    out["fused requests"] = len(tr.requests)
+    out["walls"]["fused stream"] = [w.solve_wall_s for w in tr.windows]
+
+    # faults: every family x policy on edge-cloud:lm, exact drain
+    out["faults"] = {}
+    for family in sorted(F.FAULT_FAMILIES):
+        for policy in FAULT_POLICIES:
+            sc = scenario("edge-cloud")
+            rate = sc.nominal_rate(FAULT_LOAD)
+            horizon = FAULT_ARRIVALS / rate
+            events = F.make_fault_schedule(family, sc, horizon,
+                                           seed=FAULT_SEED)
+            take()
+            tr = run_online(sc, horizon=horizon, rate=rate, seed=FAULT_SEED,
+                            drain="exact", track_commits=True, finish=True,
+                            fault_schedule=events, recovery=policy)
+            out["launches"][f"faults {family}/{policy}"] = take()
+            cc, rr = tr.completions, tr.replay_completions
+            gap = max(abs(cc[n] - rr[n]) for n in cc) if cc else 0.0
+            if set(cc) != set(rr) or gap > REPLAY_EPS_S:
+                raise AssertionError(f"faults {family}/{policy}: replay "
+                                     f"parity fails (gap {gap})")
+            slope, final, bounded = post_recovery(
+                tr, max(e.time for e in events), sc.mean_service_s)
+            if family == "transient-node" and not bounded:
+                raise AssertionError(f"faults {family}/{policy}: backlog "
+                                     f"not bounded after recovery")
+            out["faults"][family, policy] = (
+                wall_free(tr), gap, slope, final, bounded, len(tr.lost))
+    return out
+
+
+def serving_stack_phase(dev, smi: str) -> dict:
+    """Phase 15; returns the path's min-plus launches by entry."""
+    import torch
+    from repro_torch.core import solvers
+    from repro_torch.kernels import minplus
+    from repro_torch.scenarios import make_scenario
+    from repro_torch.serving.stream import run_stream
+
+    tally = dict.fromkeys(minplus.ENTRIES, 0)
+
+    def take():
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        minplus.reset_launch_count()
+        for e in counts:
+            tally[e] += counts[e]
+        return counts
+
+    minplus.reset_launch_count()
+    t0 = time.perf_counter()
+    card = serving_stack_run(dev, take)
+    torch.cuda.synchronize()
+    take()
+    card_s = time.perf_counter() - t0
+    path = dict(tally)
+    log(f"serving stack on the card (fluid gold, 2 exact online runs of "
+        f"{ONLINE_ARRIVALS} x {ONLINE_BATCH}, streams, 10 faulted runs): "
+        f"{card_s:.2f} s wall, min-plus launches {path}")
+
+    def no_take():
+        return {}
+
+    t0 = time.perf_counter()
+    cpu = serving_stack_run("cpu", no_take)
+    log(f"the same sequence on the CPU: {time.perf_counter() - t0:.2f} s")
+    walls = card.pop("walls")
+    sched, window = card.pop("timing_args")
+    cpu.pop("walls"), cpu.pop("timing_args"), cpu.pop("launches")
+    launches = card.pop("launches")
+    for key in cpu:
+        if card[key] != cpu[key]:
+            raise AssertionError(f"phase 15: {key} differs card vs CPU")
+    if card["gold"] != (FLUID_GOLD_BACKLOGS, FLUID_GOLD_LATENCIES):
+        raise AssertionError("fluid online trajectory != FLUID_GOLD")
+    if not card["stream_serial"]:
+        raise AssertionError("stream at delta=0, B=1 != the serial loop")
+    if not card["windows_equal"]:
+        raise AssertionError("schedule_windows != sequential schedule_jobs")
+    # every solve of this path is greedy (or migrate) at V <= 32: one
+    # closure launch a job, no product launch
+    want = {"fluid gold": len(card["gold"][0]), "greedy window of 4": 4,
+            "migrate of 4": 4, "fused stream": card["fused requests"]}
+    for family, _ in ONLINE_CASES:
+        want[f"online {family}"] = card[f"share {family}"][2]
+    for what, jobs in want.items():
+        if launches[what] != {"product": 0, "closure": jobs}:
+            raise AssertionError(f"{what}: {jobs} jobs solved, min-plus "
+                                 f"launches {launches[what]}")
+    log(f"  fluid gold: 24 backlogs and latencies == FLUID_GOLD; the stream "
+        f"at delta=0, B=1 == the serial loop; launches {launches}")
+    for family, _ in ONLINE_CASES:
+        share, n, jobs, peak = card[f"share {family}"]
+        w = walls[f"online {family}"][1:]
+        log(f"  online {family} exact, {n} submits of {ONLINE_BATCH} "
+            f"({jobs} jobs): {share:.3f} of submits saw a nonzero backlog, "
+            f"peak {peak:.6g} s; completions == replay, bounds hold, card "
+            f"== CPU; per-submit solve median {statistics.median(w) * 1e3:.2f}"
+            f" ms (min {min(w) * 1e3:.2f}, max {max(w) * 1e3:.2f}, "
+            f"{len(w)} after the first) on {smi}")
+        if share < 0.5:
+            raise AssertionError(f"online {family}: only {share:.3f} of "
+                                 f"submits met a real queue")
+    w = walls["fused stream"]
+    log(f"  fused stream: up to {card['fused per solve']} windows a solve, "
+        f"schedule_windows == sequential, card == CPU; per-window solve wall "
+        f"median {statistics.median(w) * 1e3:.2f} ms over {len(w)} on {smi}")
+    for (family, policy), row in card["faults"].items():
+        _, gap, slope, final, bounded, lost = row
+        log(f"  faults {family}/{policy}: replay gap {gap:.3g} s, post-"
+            f"recovery slope {slope}, last backlog {final}, bounded "
+            f"{bounded}, lost {lost}, launches "
+            f"{launches[f'faults {family}/{policy}']}")
+
+    # timings (host clock, synchronized): the migrate solve
+    topo = sched._effective_topology()
+    solvers.solve(topo, window, method="migrate", state=sched.state)
+    mig_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers.solve(topo, window, method="migrate", state=sched.state)
+        torch.cuda.synchronize()
+        mig_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  migrate solve of 4 jobs (us-backbone, queued): median "
+        f"{statistics.median(mig_ms):.2f} ms over 10 (min {min(mig_ms):.2f}, "
+        f"max {max(mig_ms):.2f}) on {smi}")
+    profile_device("a greedy window solve of 4 jobs (us-backbone, queued)",
+                   lambda: solvers.solve(topo, window, state=sched.state))
+
+    # the measured solver latency after warmup (wall-dependent: printed)
+    sc = make_scenario("paper-small", seed=0, device=dev)
+    rate = sc.nominal_rate(1.5)
+    tr = run_stream(sc, horizon=STREAM_ARRIVALS / rate, seed=4, rate=rate,
+                    window_s=0.5 / rate, max_batch=8, fuse_windows=4,
+                    solver_latency="measured", warmup=True, drain="exact")
+    log(f"  measured-latency stream after warmup: last EMA solve latency "
+        f"{tr.windows[-1].solve_model_s * 1e3:.2f} ms, first "
+        f"{tr.windows[0].solve_model_s * 1e3:.2f} ms, sustained "
+        f"{tr.sustained_arr_s():.4g} requests/s over {len(tr.requests)} "
+        f"requests in {len(tr.windows)} windows on {smi}")
+    return path
+
+
 def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
-               catalog: dict, wide: dict) -> list[dict]:
+               catalog: dict, wide: dict, stack: dict) -> list[dict]:
     """The kernels line.  The kernels on this run's newest paths report
-    those paths' launches (the catalog's solves, minicpm-2b's prefills);
-    every path's count stands in "launches_by_path", and "timed_at" names
-    the shape of the row's times."""
+    those paths' launches (the serving stack's solves for the closure
+    kernel, the catalog's V = 48 solves for the product, minicpm-2b's
+    prefills); every path's count stands in "launches_by_path", and
+    "timed_at" names the shape of the row's times."""
     from repro_torch.kernels import minplus
 
     for row, entry in zip(minplus_rows, minplus.ENTRIES):
         row["launches_by_path"] = {"§V large solves (phase 3)":
                                    row["launches"],
-                                   "catalog (phase 13)": catalog[entry]}
-        row["launches"] = catalog[entry]
+                                   "catalog (phase 13)": catalog[entry],
+                                   "serving stack (phase 15)": stack[entry]}
+        row["launches"] = stack[entry] or catalog[entry]
         row["timed_at"] = "[62,24,24] f32"
     for row in flash_rows:
         row["timed_at"] = f"[{','.join(map(str, PREFILL_SHAPE))}] bf16"
@@ -1651,10 +1989,13 @@ def main() -> int:
     bwd_entries = training_phases(dev, smi)
     catalog = catalog_phase(dev, smi)
     wide = full_width_phase(dev, smi)
+    t15 = time.perf_counter()
+    stack = serving_stack_phase(dev, smi)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
     rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
-                      wide)
-    log(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+                      wide, stack)
+    log(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

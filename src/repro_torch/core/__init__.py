@@ -10,7 +10,8 @@ from .state import (QueueState, Topology, advance, backlog_seconds,
 from .jobs import InferenceJob, JobBatch, batch_jobs, synthetic_job
 from . import arrivals
 from .routing import (Route, route_single, route_batch,
-                      cost_given_assignment, commit_assignment)
+                      cost_given_assignment, cost_given_assignments,
+                      commit_assignment)
 from .shortest_path import (Closures, build_closures, build_closures_batch,
                             closure_build_count, reset_closure_build_count)
 from .plan import Plan
@@ -30,7 +31,7 @@ __all__ = [
     "effective_topology", "total_backlog", "arrivals",
     "InferenceJob", "JobBatch", "batch_jobs", "synthetic_job",
     "Route", "route_single", "route_batch", "cost_given_assignment",
-    "commit_assignment",
+    "cost_given_assignments", "commit_assignment",
     "Closures", "build_closures", "build_closures_batch",
     "closure_build_count", "reset_closure_build_count",
     "Plan", "Solver", "solve", "register_solver", "available_solvers",

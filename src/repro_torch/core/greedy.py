@@ -85,6 +85,30 @@ def greedy_route(net: ComputeNetwork, batch: JobBatch, *,
                            paths=paths)
 
 
+def greedy_route_windows(net: ComputeNetwork, batches: list[JobBatch], *,
+                         extract_paths: bool = False) -> list[Plan]:
+    """Cross-arrival batching: W windows, W chained plans.
+
+    Window w+1 is solved against ``plans[w].net``, window w's committed
+    queues: exactly the state W sequential :func:`greedy_route` calls
+    thread through, so each plan equals its sequential counterpart bit for
+    bit (each plan's ``net`` carries that window's post-commit queues).
+    The reference fuses the chain into one padded device program; the port
+    runs eagerly, so it solves window by window and pads nothing.  All
+    windows must share the layer width (``batch_jobs(pad_to=)``).
+    """
+    lmax = {b.max_layers for b in batches}
+    if len(lmax) > 1:
+        raise ValueError(
+            f"windows must share a padded layer width (batch_jobs(pad_to=)); "
+            f"got {sorted(lmax)}")
+    plans, cur = [], net
+    for batch in batches:
+        plans.append(greedy_route(cur, batch, extract_paths=extract_paths))
+        cur = plans[-1].net
+    return plans
+
+
 def greedy_route_ref(net: ComputeNetwork, batch: JobBatch, *,
                      extract_paths: bool = False) -> Plan:
     """Host-driven Algorithm 1 round loop (the parity reference).

@@ -38,6 +38,9 @@ class InferenceJob:
     def num_layers(self) -> int:
         return int(self.comp.shape[0])
 
+    def with_deadline(self, deadline_s: float) -> "InferenceJob":
+        return dataclasses.replace(self, deadline_s=float(deadline_s))
+
     def __post_init__(self):
         # Normalize-then-validate: store the converted arrays so list inputs
         # fail here with a named ValueError, not later with AttributeError.

@@ -167,30 +167,46 @@ def cost_given_assignment(net: ComputeNetwork, comp, data, src, dst,
 
     Transfers between consecutive compute nodes take min-cost paths under
     the current queues; node waits are charged once per consecutive run.
-    Each layer's segment ``T + wait + c * cinv`` is computed elementwise on
-    the device with the reference's rounding (one fused multiply-add), then
-    the segments are summed in layer order in float32 on the host, as the
-    reference's scan does.
+    The one-row case of :func:`cost_given_assignments`.
+    """
+    return cost_given_assignments(
+        net, comp, data, src, dst, num_layers,
+        _np(assign)[None], closures=closures)[0]
+
+
+def cost_given_assignments(net: ComputeNetwork, comp, data, src, dst,
+                           num_layers, assigns,
+                           *, closures: Closures | None = None) -> np.ndarray:
+    """Objective (1) of one job under C fixed assignments at once.
+
+    ``assigns`` is [C, >= L]: one compute node per real layer in each row.
+    Each layer's segment ``T + wait + c * cinv`` is one [C, L] gather over
+    the job's closure stack, computed on the device with the reference's
+    rounding (one fused multiply-add); the segments are then summed in
+    layer order in float32 on the host, as the reference's scan does, so
+    every row equals the reference's single-assignment cost (and its
+    ``vmap`` over rows) bit for bit.  Returns float32 [C].
     """
     L, s, d = int(num_layers), int(src), int(dst)
-    a = torch.as_tensor(_np(assign)[:L].astype(np.int64), device=net.device)
+    a = torch.as_tensor(_np(assigns)[:, :L].astype(np.int64),
+                        device=net.device)                      # [C, L]
     comp_t = torch.as_tensor(_np(comp)[:L], dtype=torch.float32,
                              device=net.device)
     t = (transfer_closure(net, torch.as_tensor(data, device=net.device))
          if closures is None else closures.t)
     cinv, nw = node_invrate(net), node_wait(net)
-    prev = torch.cat([a.new_tensor([s]), a[:-1]])
-    t_in = t[torch.arange(L, device=a.device), prev, a]   # T_{l-1}[prev, cur]
+    prev = torch.cat([torch.full_like(a[:, :1], s), a[:, :-1]], dim=1)
+    layer = torch.arange(L, device=a.device)
+    t_in = t[layer, prev, a]                  # T_{l-1}[prev, cur], [C, L]
     wait = torch.where(a == prev, 0.0, nw[a])
-    wait[0] = nw[a[0]]                       # layer 1 always charges its wait
+    wait[:, 0] = nw[a[:, 0]]                 # layer 1 always charges its wait
     seg = fma_f32(comp_t, cinv[a], t_in + wait)
-    tail = t[L, a[-1], d]
-    seg_h = seg.cpu().numpy()
-    total = seg_h[0]
-    for x in seg_h[1:]:
-        total = np.float32(total + x)
-    return np.minimum(np.float32(total + tail.cpu().numpy()),
-                      np.float32(INF))
+    tail = t[L, a[:, -1], d]
+    seg_h, tail_h = seg.cpu().numpy(), tail.cpu().numpy()
+    total = seg_h[:, 0]
+    for l in range(1, L):
+        total = total + seg_h[:, l]          # float32, in layer order
+    return np.minimum(total + tail_h, np.float32(INF))
 
 
 def _layer_hops(net: ComputeNetwork, data_t: torch.Tensor, src: int, dst: int,

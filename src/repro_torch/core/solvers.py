@@ -3,8 +3,10 @@
 Counterpart of ``repro.core.solvers``.  Every algorithm is a
 :class:`Solver`: a callable ``(net, batch, **opts) -> Plan`` registered
 under a short method name.  Ported methods: ``greedy`` (Algorithm 1),
-``greedy_ref`` (the host-driven round loop it is held against) and
-``lazy``; :func:`available` lists exactly what is registered.
+``greedy_ref`` (the host-driven round loop it is held against), ``lazy``
+and ``migrate`` (the fault layer's one-node re-placement);
+:func:`available` lists exactly what is registered.  :func:`solve_fused`
+solves several queued arrival windows in one call.
 """
 from __future__ import annotations
 
@@ -84,6 +86,42 @@ def solve(net: ComputeNetwork | Topology, batch: JobBatch,
     return dataclasses.replace(plan, meta=meta)
 
 
+def solve_fused(net: ComputeNetwork | Topology, batches: list[JobBatch],
+                *, state: QueueState | None = None, pad_to: int | None = None,
+                **opts) -> list[Plan]:
+    """Solve several queued arrival windows in one call.
+
+    ``batches`` are solved in order, each against the previous window's
+    committed queues (``greedy.greedy_route_windows``): bit-identical to
+    sequential ``solve(method="greedy")`` calls threading the state by
+    hand.  All windows must share a padded layer width; ``pad_to`` asserts
+    it (callers that built their batches with ``batch_jobs(pad_to=...)``
+    pass the same value).  Returns one Plan per window; each plan's ``net``
+    carries that window's post-commit queue state and its ``meta`` the
+    call's accounting (``solve_s`` is the whole call's wall;
+    ``solve_share_s`` the per-window share).
+    """
+    from . import greedy
+    if isinstance(net, Topology):
+        net = net.view(state)
+    elif state is not None:
+        raise ValueError("state= is only meaningful with a Topology first arg")
+    if pad_to is not None:
+        bad = [b.max_layers for b in batches if b.max_layers != pad_to]
+        if bad:
+            raise ValueError(f"every window must be padded to pad_to="
+                             f"{pad_to}; got layer widths {bad}")
+    n0 = closure_build_count()
+    t0 = time.perf_counter()
+    plans = greedy.greedy_route_windows(net, batches, **opts)
+    wall = time.perf_counter() - t0
+    builds = closure_build_count() - n0
+    return [dataclasses.replace(p, meta={
+        "method": "greedy", **p.meta, "solve_s": wall,
+        "solve_share_s": wall / max(len(plans), 1),
+        "closure_builds": builds}) for p in plans]
+
+
 # -- built-ins --------------------------------------------------------------
 
 @register("greedy")
@@ -102,3 +140,11 @@ def _solve_greedy_ref(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
 def _solve_lazy(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
     from . import greedy
     return greedy.greedy_route(net, batch, lazy=True, **opts)
+
+
+@register("migrate")
+def _solve_migrate(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    # Importing the fault layer re-registers the real function over this
+    # stub; either path runs the same solver.
+    from ..serving import faults
+    return faults.migrate_solve(net, batch, **opts)

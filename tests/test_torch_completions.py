@@ -6,8 +6,8 @@ The ledger is host float64 in both packages, so commits, drains,
 ``run_to_completion``, ``predict_completions``, the piecewise replay and
 the exact backlog trace equal the reference's bit for bit: ``completed``
 tuples, live job records and queue arrays.  The rest mirrors the tests of
-``tests/test_completions.py`` and ``tests/test_predict.py`` that need no
-online scheduler.
+``tests/test_completions.py`` and ``tests/test_predict.py``; those that
+drive the online scheduler also hold its trajectory to the reference's.
 """
 import numpy as np
 import pytest
@@ -24,6 +24,11 @@ from repro_torch.core import (completions as C, jobs as J, network as N,  # noqa
 from repro_torch.core.eventsim import EventEngine  # noqa: E402
 from repro_torch.core.plan import Plan  # noqa: E402
 from repro_torch.scenarios import FAMILIES, make_scenario  # noqa: E402
+from repro_torch.serving import faults as F  # noqa: E402
+from repro_torch.serving.online import OnlineScheduler, run_online  # noqa: E402
+from repro.serving import online as JO  # noqa: E402
+from test_torch_online import (_edge_cloud_pair, _same_plan,  # noqa: E402
+                               assert_same_trace, scenario_pair)
 from util import random_instance  # noqa: E402
 
 RTOL = 1e-9
@@ -384,3 +389,250 @@ def test_exact_backlog_trace_rejects_drained_ledger():
     drained = C.drain_exact(net.topology, ledger, 1e-3)
     with pytest.raises(ValueError, match="undrained"):
         C.exact_backlog_trace(net.topology, drained, [1.0])
+
+
+# -- online-bound mirrors of tests/test_completions.py ------------------------
+
+def _star_runs(drain, *, load=0.7, arrivals=25, **kw):
+    """The reference's ``_star_run`` in both packages: (port scenario,
+    reference trace, port trace)."""
+    jsc, tsc = scenario_pair("star", seed=0)
+    rate = jsc.nominal_rate(load)
+    tsc.nominal_rate(load)
+    kw = dict(horizon=arrivals / rate, seed=3, rate=rate, drain=drain, **kw)
+    return tsc, JO.run_online(jsc, **kw), run_online(tsc, **kw)
+
+
+@pytest.fixture(scope="module")
+def star_exact():
+    return _star_runs("exact", track_commits=True, finish=True)
+
+
+def test_online_exact_backlog_bounded_and_bounds_hold(star_exact):
+    _, want, tr = star_exact
+    assert_same_trace(want, tr)
+    assert len(tr.records) >= 15
+    assert tr.backlog_growth() <= 1.5, tr.summary()
+    act, bound = tr.actual_latencies(), tr.latencies
+    assert act.size == bound.size == len(tr.completions)
+    assert (act <= bound * (1 + 1e-6) + 1e-9).all()
+
+
+def test_online_exact_incremental_matches_one_shot_replay(star_exact):
+    _, _, tr = star_exact
+    assert tr.completions.keys() == tr.replay_completions.keys()
+    for name, when in tr.completions.items():
+        np.testing.assert_allclose(when, tr.replay_completions[name],
+                                   rtol=1e-9, atol=1e-9)
+
+
+def test_online_exact_backlog_trace_dominates_fluid():
+    sc, want, tr = _star_runs("fluid", track_commits=True, finish=True)
+    assert_same_trace(want, tr)
+    exb = C.exact_backlog_trace(sc.topology, tr.commit_log, tr.times)
+    flb = np.array([r.backlog_before for r in tr.records])
+    assert exb.shape == flb.shape
+    assert (exb >= flb - 1e-6).all()
+
+
+def _star_sched(**kw):
+    sc = make_scenario("star", seed=0, device="cpu")
+    return sc, OnlineScheduler(sc.topology, **kw)
+
+
+def test_exact_backlog_trace_rejects_drained_ledger_through_scheduler():
+    sc, sched = _star_sched(drain="exact")
+    sched.submit_jobs(0.0, sc.sample_jobs(np.random.default_rng(0), 1),
+                      pad_to=sc.max_layers)
+    sched.advance_to(1e-3)
+    with pytest.raises(ValueError, match="undrained"):
+        C.exact_backlog_trace(sc.topology, sched.ledger, [1.0])
+
+
+def test_scheduler_drain_mode_validation_and_reset():
+    sc, _ = _star_sched()
+    with pytest.raises(ValueError, match="drain must be"):
+        OnlineScheduler(sc.topology, drain="magic")
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    sched.submit_jobs(0.0, sc.sample_jobs(np.random.default_rng(1), 2),
+                      pad_to=sc.max_layers)
+    assert sched.ledger is not None and len(sched.ledger.jobs) == 2
+    qn, _ = sched.ledger.queue_arrays()
+    assert sched.state.q_node.dtype == torch.float32
+    np.testing.assert_array_equal(sched.state.q_node.numpy(), qn)
+    sched.drain()
+    assert not sched.ledger.jobs
+    assert float(sched.state.q_node.max()) == 0.0
+
+
+def test_exact_replan_rolls_ledger_back():
+    jsc, js, tsc, ts = _edge_cloud_pair(drain="exact")
+    for sc, sched in ((jsc, js), (tsc, ts)):
+        rng = np.random.default_rng(3)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+    assert len(ts.ledger.jobs) == 4
+    bound0 = ts.last_plan.bound()
+    for sched in (js, ts):
+        sched.advance_to(1e9)
+    assert not ts.ledger.jobs
+    for sched in (js, ts):
+        sched.replan_last()
+    assert len(ts.ledger.jobs) == 2
+    assert ts.last_plan.bound() < bound0
+    _same_plan(js, ts)
+    assert ts.ledger.completed == js.ledger.completed
+
+
+def test_online_slowdown_invalid_node_does_not_move_clock():
+    sc, sched = _star_sched()
+    sched.advance_to(1.0)
+    with pytest.raises(ValueError, match="out of range"):
+        sched.report_slowdown(sc.num_nodes + 5, 2.0, at=9.0)
+    assert sched.now == pytest.approx(1.0)
+    assert sched.trace.events == []
+
+
+def test_exact_bounds_hold_through_replan():
+    jsc, js, tsc, ts = _edge_cloud_pair(drain="exact")
+    for sc, sched in ((jsc, js), (tsc, ts)):
+        rng = np.random.default_rng(11)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 1), pad_to=sc.max_layers)
+        sched.submit_jobs(0.5, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+    victim = int(ts.last_plan.assign[int(ts.last_plan.order[0]), 0])
+    for sched in (js, ts):
+        sched.report_slowdown(victim, 50.0, at=1.0)
+        sched.replan_last()
+        sched.finish()
+    assert_same_trace(js.trace, ts.trace)
+    actual, bounds = ts.trace.actual_latencies(), ts.trace.latencies
+    assert actual.size == bounds.size == 3
+    assert (actual <= bounds * (1 + 1e-6) + 1e-9).all(), (actual, bounds)
+
+
+def test_online_scheduler_finish_requires_exact():
+    _, sched = _star_sched()
+    with pytest.raises(ValueError, match="exact"):
+        sched.finish()
+    with pytest.raises(ValueError, match="track_commits"):
+        sched.replay_ground_truth()
+
+
+def test_ledger_rejects_duplicate_job_names():
+    """Through the exact-drain ``RoutedScheduler``: a repeated request
+    name is refused, distinct names across batches are fine."""
+    from repro_torch.serving.scheduler import Request, RoutedScheduler
+
+    G, GB = 1e12, 1e9
+    net = N.make_network(3, [(0, 1, 10 * GB), (1, 2, 10 * GB)],
+                         [0, 50 * G, 0], device="cpu")
+    sched = RoutedScheduler(net, drain="exact")
+    sched.schedule([Request("smollm_135m", 0, 2)])
+    with pytest.raises(ValueError, match="duplicate job name 'req0'"):
+        sched.schedule([Request("smollm_135m", 0, 2)])
+    sched.schedule([Request("smollm_135m", 0, 2, name="r1")])
+    assert len(sched.ledger.jobs) == 2
+
+
+# -- scheduler-bound mirrors of tests/test_predict.py --------------------------
+
+def _drive(sched, sc, rng, windows, batch=2, dt=0.05):
+    t = 0.0
+    for _ in range(windows):
+        sched.submit_jobs(t, sc.sample_jobs(rng, batch),
+                          pad_to=sc.max_layers)
+        t += dt
+    return t
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_predictions_match_realized_completions(family):
+    """At a fresh commit and at a queued mid-run state, the forked
+    prediction equals what finish() later realizes (rtol 1e-9), and equals
+    the reference's prediction bit for bit."""
+    out = {}
+    for pkg, (sc, Sched, Cm) in zip(("ref", "port"), (
+            (RS.make_scenario(family, seed=0), JO.OnlineScheduler, JC),
+            (make_scenario(family, seed=0, device="cpu"), OnlineScheduler,
+             C))):
+        rng = np.random.default_rng(7)
+        sched = Sched(sc.topology, drain="exact")
+        _drive(sched, sc, rng, windows=1)
+        fresh = Cm.predict_completions(sched._effective_topology(),
+                                       sched.ledger)
+        _drive(sched, sc, rng, windows=2)
+        queued = Cm.predict_completions(sched._effective_topology(),
+                                        sched.ledger)
+        out[pkg] = (fresh, queued, sched.finish())
+    assert out["port"] == out["ref"]
+    fresh, queued, realized = out["port"]
+    assert set(queued) >= set(realized)
+    for name, t_done in realized.items():
+        np.testing.assert_allclose(queued[name], t_done, rtol=RTOL)
+        if name in fresh:
+            np.testing.assert_allclose(fresh[name], t_done, rtol=RTOL)
+
+
+def test_prediction_with_extra_plan_matches_commit_then_finish():
+    sc = make_scenario("paper-small", seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    t = _drive(sched, sc, rng, windows=2)
+    jobs = sc.sample_jobs(rng, 3)
+    names = [j.name for j in jobs]
+    batch, plan = sched.presolve(jobs, pad_to=sc.max_layers)
+    assert plan.paths is not None      # exact mode asks the greedy for paths
+    preds = C.predict_completions(
+        sched._effective_topology(), sched.ledger,
+        extra_plans=[(batch, plan, names)], at=t)
+    sched.advance_to(t)
+    sched.commit_presolved(jobs, batch, plan)
+    realized = sched.finish()
+    for name in names:
+        np.testing.assert_allclose(preds[name], realized[name], rtol=RTOL)
+
+
+def test_indexed_and_ref_prediction_engines_agree():
+    sc = make_scenario("star", seed=0, device="cpu")
+    rng = np.random.default_rng(11)
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    _drive(sched, sc, rng, windows=2)
+    topo = sched._effective_topology()
+    fast = C.predict_completions(topo, sched.ledger, engine="indexed")
+    ref = C.predict_completions(topo, sched.ledger, engine="ref")
+    assert set(fast) == set(ref)
+    for name in fast:
+        np.testing.assert_allclose(fast[name], ref[name], rtol=RTOL)
+
+
+def test_predictions_exact_through_outage_segment():
+    """A prediction made after a node fail/recover cycle (requeue policy)
+    matches the realized completions exactly."""
+    sc = make_scenario("paper-small", seed=0, device="cpu")
+    rate = sc.nominal_rate(0.8)
+    horizon = 10 / rate
+    faults = [F.FaultEvent(0.3 * horizon, "node_fail", node=1),
+              F.FaultEvent(0.6 * horizon, "node_recover", node=1)]
+    rng = np.random.default_rng(2)
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    injector = F.FaultInjector(sched, policy="requeue", pad_to=sc.max_layers)
+    fi = 0
+    for t in np.linspace(0, horizon, 8):
+        while fi < len(faults) and faults[fi].time <= float(t):
+            injector.apply(faults[fi])
+            fi += 1
+        jobs = sc.sample_jobs(rng, 1)
+        if sched.degraded:
+            jobs = injector.filter_arrivals(float(t), jobs)
+            if not jobs:
+                continue
+        sched.submit_jobs(float(t), jobs, pad_to=sc.max_layers)
+    while fi < len(faults):
+        injector.apply(faults[fi])
+        fi += 1
+    preds = C.predict_completions(sched._effective_topology(), sched.ledger,
+                                  down=sched._down_keys())
+    realized = sched.finish()
+    assert realized
+    for name, t_done in realized.items():
+        np.testing.assert_allclose(preds[name], t_done, rtol=RTOL)

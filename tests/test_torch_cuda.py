@@ -1,7 +1,8 @@
 """The port on a CUDA card: the min-plus product and closure kernels
 against their plain versions, the greedy solve on the card against the
-same solve on the CPU, bit for bit (the §V instance and a window of each
-catalog scenario), and the flash-attention kernels
+same solve on the CPU, bit for bit (the §V instance, a window of each
+catalog scenario, an online window, a migrate solve and a fused stream
+window), and the flash-attention kernels
 (forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
 tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
@@ -182,6 +183,53 @@ def test_catalog_solve_on_card_matches_cpu(cuda, family, opts):
     for x, y in zip(gled.queue_arrays(), cled.queue_arrays()):
         np.testing.assert_array_equal(x, y)
     assert gdone == cdone
+
+
+def test_online_and_fused_stream_windows_on_card_match_cpu(cuda):
+    """One exact online window and one fused stream window on the card:
+    traces, plans and ledger completions equal the CPU's bit for bit; the
+    online window's solve closes each round in one closure launch, and a
+    migrate re-placement makes one closure launch a job."""
+    import json
+    from repro_torch.scenarios import make_scenario
+    from repro_torch.serving.online import OnlineScheduler
+    from repro_torch.serving.stream import run_stream
+
+    def run(device):
+        sc = make_scenario("edge-cloud", seed=0, device=device)
+        sched = OnlineScheduler(sc.topology, drain="exact",
+                                track_commits=True)
+        jobs = sc.sample_jobs(np.random.default_rng(5), 4)
+        minplus.reset_launch_count()
+        sched.submit_jobs(0.0, jobs, pad_to=sc.max_layers)
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        migrate = solvers.solve(sc.topology, J.batch_jobs(
+            jobs[:3], pad_to=sc.max_layers, device=device),
+            method="migrate", state=sched.state)
+        mig_counts = {e: minplus.launch_count(e) - counts[e]
+                      for e in minplus.ENTRIES}
+        online = (sched.finish(), sched.last_plan, migrate)
+        rate = sc.nominal_rate(1.5)
+        tr = run_stream(make_scenario("paper-small", seed=0, device=device),
+                        horizon=8 / rate, seed=4, rate=rate,
+                        window_s=0.5 / rate, max_batch=8, fuse_windows=4,
+                        solver_latency=4 / rate, drain="exact", finish=True)
+        blob = json.loads(json.dumps(tr.to_dict()))
+        for w in blob["window_records"]:
+            w.pop("solve_wall_s")
+        return counts, mig_counts, online, blob
+
+    counts, mig_counts, gpu, gblob = run(cuda)
+    torch.cuda.synchronize()
+    _, _, cpu, cblob = run("cpu")
+    assert counts == {"product": 0, "closure": 4}
+    assert mig_counts == {"product": 0, "closure": 3}
+    assert gpu[0] == cpu[0]
+    for a, b in zip(gpu[1:], cpu[1:]):
+        assert a.bounds.tolist() == b.bounds.tolist()
+        np.testing.assert_array_equal(a.assign, b.assign)
+        assert torch.equal(a.net.q_node.cpu(), b.net.q_node)
+    assert gblob == cblob and gblob["windows"] > 0
 
 
 # -- flash attention ----------------------------------------------------------

@@ -5,8 +5,9 @@ Both packages run the same float64 numpy operations in the same order, so
 the port's indexed engine equals the reference's indexed engine bit for
 bit on the same task lists, and likewise for the linear-scan loops.  The
 port's two engines agree with each other at rtol 1e-9, the reference's own
-parity bar.  The rest mirrors the tests of ``tests/test_eventsim.py`` that
-need no online scheduler.
+parity bar.  The rest mirrors the tests of ``tests/test_eventsim.py``;
+those that drive the online scheduler also hold its trajectory to the
+reference's.
 """
 import copy
 
@@ -21,7 +22,9 @@ from repro.core import (eventsim as JE, jobs as JJ, schedule as JSch,  # noqa: E
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import (eventsim, jobs as J, schedule,  # noqa: E402
                               solve)
+from repro_torch.core import completions as C  # noqa: E402
 from repro_torch.scenarios import make_scenario  # noqa: E402
+from repro_torch.serving.online import OnlineScheduler, run_online  # noqa: E402
 
 
 def _random_system(rng, *, staggered=False, V=5, max_tasks=6,
@@ -302,3 +305,136 @@ def test_simulate_engine_param_agrees(seed):
     for engine, got in (("ref", ref), ("indexed", idx)):
         want = JSch.simulate(jnet, jbatch, jplan, engine=engine)
         assert got.completion.tolist() == want.completion.tolist()
+
+
+# -- scheduler-bound mirrors ---------------------------------------------------
+
+def _lockstep_schedulers(sc, arrivals=6, **kw):
+    """Two exact-mode schedulers fed identical jobs, one per engine."""
+    scheds = {eng: OnlineScheduler(sc.topology, drain="exact",
+                                   sim_engine=eng, **kw)
+              for eng in ("indexed", "ref")}
+    rng = np.random.default_rng(11)
+    t = 0.0
+    for _ in range(arrivals):
+        jobs = sc.sample_jobs(rng, 1)
+        for sched in scheds.values():
+            sched.submit_jobs(t, list(jobs), pad_to=sc.max_layers)
+        t += float(rng.uniform(0.05, 0.4))
+    return scheds
+
+
+def _star():
+    return make_scenario("star", seed=0, device="cpu")
+
+
+def test_scheduler_engines_agree_end_to_end():
+    """Drains, commits, ledger-materialised queues and final completions
+    agree between the persistent indexed engine and the reference loop."""
+    scheds = _lockstep_schedulers(_star())
+    a, b = scheds["indexed"], scheds["ref"]
+    la = np.array([r.latencies for r in a.trace.records], np.float64)
+    lb = np.array([r.latencies for r in b.trace.records], np.float64)
+    np.testing.assert_allclose(la, lb, rtol=1e-5, atol=1e-6)
+    ca, cb = a.finish(), b.finish()
+    assert ca.keys() == cb.keys()
+    for name in ca:
+        np.testing.assert_allclose(ca[name], cb[name], rtol=1e-7, atol=1e-7)
+
+
+def test_persistent_engine_is_threaded_not_rebuilt():
+    sc = _star()
+    sched = OnlineScheduler(sc.topology, drain="exact")
+    rng = np.random.default_rng(3)
+    sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+    eng0 = C._engine_of(sched.ledger)
+    assert eng0 is not None
+    snapshot = sched.ledger
+    sched.advance_to(0.05)
+    sched.submit_jobs(0.1, sc.sample_jobs(rng, 1), pad_to=sc.max_layers)
+    assert C._engine_of(sched.ledger) is eng0
+    assert C._engine_of(snapshot) is None
+    re = C.drain_exact(sc.topology, snapshot, 0.05)
+    ref = C.drain_exact(sc.topology, snapshot, 0.05, engine="ref")
+    np.testing.assert_allclose(re.queue_arrays()[0], ref.queue_arrays()[0],
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_replan_rollback_with_indexed_engine():
+    sc = make_scenario("edge-cloud", traffic="synthetic", seed=0,
+                       device="cpu")
+    for eng in ("indexed", "ref"):
+        sched = OnlineScheduler(sc.topology, drain="exact", sim_engine=eng)
+        rng = np.random.default_rng(3)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+        assert len(sched.ledger.jobs) == 4
+        sched.advance_to(1e9)
+        assert not sched.ledger.jobs
+        sched.replan_last()
+        assert len(sched.ledger.jobs) == 2
+
+
+def test_exact_backlog_trace_single_pass_matches_ref():
+    sc = _star()
+    rate = sc.nominal_rate(0.7)
+    tr = run_online(sc, horizon=20 / rate, seed=3, rate=rate,
+                    track_commits=True)
+    fast = C.exact_backlog_trace(sc.topology, tr.commit_log, tr.times)
+    ref = C.exact_backlog_trace(sc.topology, tr.commit_log, tr.times,
+                                engine="ref")
+    np.testing.assert_allclose(fast, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_piecewise_replay_matches_incremental_through_slowdown():
+    """With a mid-run straggler the ground-truth replay serves each window
+    at the health then in force, as the incremental drain did; the
+    reference's scheduler realises the same completions bit for bit."""
+    from repro import scenarios as RS
+    from repro.serving.online import OnlineScheduler as JOnlineScheduler
+    out = []
+    for sc, Sched in ((_star(), OnlineScheduler),
+                      (RS.make_scenario("star", seed=0), JOnlineScheduler)):
+        sched = Sched(sc.topology, drain="exact", track_commits=True)
+        rng = np.random.default_rng(5)
+        sched.submit_jobs(0.0, sc.sample_jobs(rng, 2), pad_to=sc.max_layers)
+        victim = int(sched.last_plan.assign[int(sched.last_plan.order[0]),
+                                            0])
+        sched.report_slowdown(victim, 6.0, at=0.02)
+        sched.submit_jobs(0.05, sc.sample_jobs(rng, 1), pad_to=sc.max_layers)
+        out.append((sched, victim, sched.finish(),
+                    sched.replay_ground_truth()))
+    (sched, victim, incremental, replay), ref = out[0], out[1]
+    assert (incremental, replay) == ref[2:]
+    assert sched.commit_log.health == ((0.02, victim, 6.0),)
+    assert incremental.keys() == replay.keys()
+    for name in incremental:
+        np.testing.assert_allclose(replay[name], incremental[name],
+                                   rtol=1e-6, atol=1e-6)
+    end_state, _ = C.run_to_completion(sched._effective_topology(),
+                                       sched.commit_log)
+    worst = max(abs(end_state[n] - incremental[n]) for n in incremental)
+    assert worst > 1e-4
+
+
+def test_replan_keeps_health_history_in_commit_log():
+    sc = make_scenario("edge-cloud", traffic="synthetic", seed=0,
+                       device="cpu")
+    sched = OnlineScheduler(sc.topology, drain="exact", track_commits=True)
+    rng = np.random.default_rng(7)
+    sched.submit_jobs(0.0, sc.sample_jobs(rng, 1), pad_to=sc.max_layers)
+    sched.submit_jobs(0.2, sc.sample_jobs(rng, 1), pad_to=sc.max_layers)
+    sched.report_slowdown(0, 2.0, at=0.3)
+    sched.replan_last()
+    assert sched.commit_log.health == ((0.3, 0, 2.0),)
+
+
+def test_scheduler_engine_validation():
+    """The scheduler half of the reference's ``test_engine_validation``."""
+    sc = _star()
+    with pytest.raises(ValueError, match="sim_engine must be"):
+        OnlineScheduler(sc.topology, drain="exact", sim_engine="magic")
+    led = C.CommittedWork.empty(3)
+    with pytest.raises(ValueError, match="engine must be"):
+        C.drain_exact(None, led, 1.0, engine="magic")
+

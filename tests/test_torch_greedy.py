@@ -146,9 +146,10 @@ def test_route_cli_matches_reference():
 
 
 def test_registry_lists_only_ported_solvers():
-    assert TS.available() == ("greedy", "greedy_ref", "lazy")
+    assert TS.available() == ("greedy", "greedy_ref", "lazy", "migrate")
     _, _, tnet, tbatch = _instance("quick")
-    with pytest.raises(ValueError, match="available: greedy, greedy_ref, lazy"):
+    with pytest.raises(ValueError,
+                       match="available: greedy, greedy_ref, lazy, migrate"):
         tsolve(tnet, tbatch, method="sa")
     # every registry arch builds the reference's jobs; unknown ones raise
     spec = "gemma3_1b:1,deepseek_v2_236b:1,vgg19:1"

@@ -29,6 +29,8 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.scenarios, repro_torch.configs.shapes\n"
             "import repro_torch.core.eventsim, repro_torch.core.arrivals\n"
             "import repro_torch.core.completions\n"
+            "import repro_torch.serving.admission, repro_torch.serving.online\n"
+            "import repro_torch.serving.faults, repro_torch.serving.stream\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -64,6 +66,8 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from repro_torch.models import model
     from repro_torch.scenarios import make_scenario
     from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.online import run_online
+    from repro_torch.serving.stream import run_stream
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     job = jobs.synthetic_job("j", 0, 1, 3)
@@ -73,6 +77,9 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: network.small_topology(),
         lambda: network.us_backbone(capacity_scale=1e-4),
         lambda: make_scenario("star"),
+        lambda: run_online(make_scenario("star"), horizon=1.0),
+        lambda: run_stream(make_scenario("edge-cloud"), horizon=1.0,
+                           drain="exact"),
         lambda: CommittedWork.empty(3).queue_state(),
         lambda: jobs.batch_jobs([job]),
         lambda: Plan.from_dict({"assign": [[0]], "priority": [0],

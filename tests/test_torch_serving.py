@@ -135,27 +135,133 @@ def test_straggler_avoidance_bit_equal():
 
 
 def test_scheduler_validates_and_refuses_unported_modes():
+    """Every mode is ported now: what is refused is what the reference
+    refuses -- bad slowdowns, nodes, links and times, a bogus drain or
+    event engine -- and a replan with nothing to re-place declines with
+    the reference's reason."""
     _, ts = _schedulers()
     for bad in (0.0, -1.0, float("nan"), float("inf")):
         with pytest.raises(ValueError, match="slowdown factor"):
             ts.report_slowdown(1, bad)
     with pytest.raises(ValueError, match="out of range"):
         ts.report_slowdown(99, 2.0)
+    assert (ts._slowdown == 1.0).all()
+    ts.report_slowdown(1, 2.0)
+    assert ts._slowdown[1] == 2.0
     with pytest.raises(ValueError, match="does not exist"):
         ts.set_link_availability(0, 5, False)
     with pytest.raises(ValueError, match="dt must be"):
         ts.advance(-1.0)
     net = TN.make_network(6, EDGES, CAPS, device="cpu")
-    for kw in (dict(drain="exact"), dict(track_commits=True),
-               dict(sim_engine="indexed")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tsched.RoutedScheduler(net, **kw)
     with pytest.raises(ValueError, match="drain must be"):
         tsched.RoutedScheduler(net, drain="bogus")
-    for call in (ts.replan_last, ts.stats, lambda: ts.warmup([]),
-                 lambda: ts.schedule_windows([])):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            call()
+    with pytest.raises(ValueError, match="sim_engine must be"):
+        tsched.RoutedScheduler(net, drain="exact", sim_engine="bogus")
+    fresh = tsched.RoutedScheduler(net, drain="exact", track_commits=True,
+                                   sim_engine="ref")
+    assert fresh.replan_last() is None
+    assert fresh.last_replan_reason == "no_batch"
+    assert fresh.stats() == {} and fresh.schedule_windows([]) == []
+    assert fresh.warmup([])["compiles"] == 0
+
+
+def _requests(arch, n, **kw):
+    return [tsched.Request(arch, 0, 5, name=f"r{i}", **kw) for i in range(n)]
+
+
+def _jrequests(arch, n, **kw):
+    return [jsched.Request(arch, 0, 5, name=f"r{i}", **kw) for i in range(n)]
+
+
+def test_placements_valid_and_prioritized():
+    _, ts = _schedulers()
+    plans = ts.schedule(_requests("smollm_135m", 4, seq_len=1024))
+    assert [p.priority for p in plans] == [0, 1, 2, 3]
+    for p in plans:
+        assert all(n in (1, 2, 3, 4) for n in p.nodes_used)
+        assert p.bound_s > 0
+
+
+def test_placements_are_views_over_stored_plan():
+    import json
+    from repro_torch.core.plan import Plan
+
+    _, ts = _schedulers()
+    plans = ts.schedule(_requests("smollm_135m", 3))
+    stored = ts.last_plan
+    assert stored is not None and stored.solver == "greedy"
+    for p in plans:
+        assert p.plan is stored
+        assert p.bound_s == float(stored.bounds[p.job])
+    rt = Plan.from_dict(json.loads(json.dumps(stored.to_dict())),
+                        device="cpu")
+    np.testing.assert_array_equal(rt.assign, stored.assign)
+    np.testing.assert_array_equal(rt.priority, stored.priority)
+
+
+def test_scheduler_method_flag():
+    by_method = {}
+    for method in ("greedy", "lazy"):
+        _, ts = _schedulers(method)
+        ts.schedule(_requests("smollm_135m", 3))
+        by_method[method] = ts.last_plan
+        assert ts.stats()["method"] == method
+    np.testing.assert_allclose(by_method["greedy"].bounds,
+                               by_method["lazy"].bounds, rtol=1e-6)
+
+
+def test_replan_last_routes_around_straggler():
+    """report_slowdown + replan_last re-places the same batch, as the
+    reference's scheduler does, bit for bit."""
+    js, ts = _schedulers()
+    _same_placements(js.schedule(_jrequests("olmo_1b", 2)),
+                     ts.schedule(_requests("olmo_1b", 2)))
+    victim = ts.last_plan.assign[int(ts.last_plan.order[0]), 0]
+    for sched in (js, ts):
+        sched.report_slowdown(int(victim), 50.0)
+    replans = ts.replan_last()
+    _same_placements(js.replan_last(), replans)
+    _same_state(js, ts)
+    assert replans is not None and len(replans) == 2
+    assert ts.last_replan_reason == "replanned"
+    for p in replans:
+        assert victim not in p.nodes_used, (victim, p.nodes_used)
+
+
+def test_scheduler_exact_drain_end_to_end():
+    js = jsched.RoutedScheduler(JN.make_network(6, EDGES, CAPS),
+                                drain="exact")
+    ts = tsched.RoutedScheduler(TN.make_network(6, EDGES, CAPS,
+                                                device="cpu"), drain="exact")
+    plans = ts.schedule(_requests("smollm_135m", 3))
+    _same_placements(js.schedule(_jrequests("smollm_135m", 3)), plans)
+    assert [p.priority for p in plans] == [0, 1, 2]
+    assert len(ts.ledger.jobs) == 3
+    q0 = float(ts.state.q_node.sum())
+    assert q0 > 0
+    for sched in (js, ts):
+        sched.advance(1e-3)
+    _same_state(js, ts)
+    assert float(ts.state.q_node.sum()) < q0
+    for sched in (js, ts):
+        sched.advance(1e9)
+    assert ts.ledger.completed == js.ledger.completed
+    assert not ts.ledger.jobs and len(ts.ledger.completed) == 3
+    assert float(ts.state.q_node.max()) == 0.0
+    assert float(ts.state.q_link.max()) == 0.0
+
+
+def test_scheduler_advance_drains_queues():
+    _, ts = _schedulers()
+    ts.schedule(_requests("olmo_1b", 1))
+    q0 = float(ts.state.q_node.sum())
+    assert q0 > 0
+    ts.advance(1e-3)
+    assert float(ts.state.q_node.sum()) < q0
+    ts.advance(1e9)
+    assert float(ts.state.q_node.max()) == 0.0
+    assert float(ts.state.q_link.max()) == 0.0
+    assert ts.clock > 0
 
 
 def test_serve_driver_plans_bit_equal():
