@@ -118,7 +118,35 @@ Phases, each of which fails the run by exception:
      closure launch a job for greedy and migrate, no product); the
      per-submit, per-window and migrate solve walls, a profile of one
      window solve, and a stream under measured solver latency after
-     warm-up (printed).
+     warm-up (printed);
+ 16. drive Algorithm 2 and the exact oracles (``repro_torch.core``
+     ``annealing``, ``exact``, ``bounds``) on paper-small (the quickstart
+     instance, V = 5, 8 jobs), once on the card and once on the CPU, all
+     equal bit for bit: SA at d = 0.9 with 2 chains from a random and a
+     greedy start, each on one ``DrawTape``; greedy; exact on 4 jobs;
+     Lemma 8's bounds, alpha and Corollary 1's factor; the min-plus
+     counters set to 0 around each solve (one closure launch a job
+     evaluated, routed or replayed: K (iters + 1) J + J for SA, plus J
+     for the greedy start; ``n_routings`` for exact; 1 for the bounds; no
+     product); then the paper's Fig. 5 schedule on the card (d = 0.995,
+     4 chains, or one when the d = 0.9 runs estimate it above 120 s)
+     beside greedy's ``solve_s`` and their ratio, and a profile of a
+     20-iteration SA;
+ 17. olmoe-1b-7b at full width (16 layers, 16 heads of 128, 64 experts
+     top-8; random weights from seed 0): float32 with TF32 off at B=1,
+     S=512, flash against xla (16 CUDA-core forward launches; logits at
+     3e-4 on the positions before any token whose experts differ between
+     the runs); the bf16 prefill at B=4, S=2048 (16 launches of the
+     tensor-core forward at [64, 2048, 128], none of the CUDA-core one;
+     finite logits, peak memory, the share of token-slots dropped by
+     capacity); ``DecodeEngine`` against a ``serve_step`` loop; then
+     deepseek-v2 at full width cut to one layer (MLA 192 -> 128, 160
+     experts top-6, 2 shared): float32 flash against xla (the CUDA-core
+     forward), the absorbed latent decode of 8 tokens against the
+     materialized prefill, the bf16 prefill at B=1, S=2048 (one CUDA-core
+     launch); each model's forward kernel at its shape against its plain
+     version, timed with its bound and SDPA; each prefill timed and
+     profiled.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -1910,40 +1938,574 @@ def serving_stack_phase(dev, smi: str) -> dict:
     return path
 
 
+# -- phase 16: Algorithm 2 and the exact oracles on the card -----------------
+
+# SA as the parity check runs it, and the paper's Fig. 5 schedule
+SA_CHECK = dict(d=0.9, num_chains=2, block_move_prob=0.3)
+FIG5 = dict(d=0.995, num_chains=4, block_move_prob=0.3)
+FIG5_LIMIT_S = 120.0    # a Fig. 5 run estimated above this takes one chain
+EXACT_JOBS = 4          # the exact solver's subset of paper-small's jobs
+
+
+def paper_small(device, n: int = 8):
+    """The quickstart instance, paper-small: the 5-node topology at link
+    capacity scale 1e-3 and the first ``n`` of ``paper_jobs_small(0)``.
+    Returns (net, batch, jobs)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import jobs as J, network as N
+    net, _ = N.small_topology(capacity_scale=1e-3, device=device)
+    jobs = paper_jobs_small(0, registry)[:n]
+    return net, J.batch_jobs(jobs, device=device), jobs
+
+
+def plan_fields(plan) -> tuple:
+    """Everything of a plan that card and CPU must agree on."""
+    net = plan.net
+    return (plan.order.tolist(), plan.assign.tolist(), plan.bounds.tolist(),
+            None if net is None else (net.q_node.cpu().numpy().tolist(),
+                                      net.q_link.cpu().numpy().tolist()),
+            plan.paths, np.asarray(plan.meta.get("history", [])).tolist(),
+            plan.meta.get("chain_cost"), plan.meta.get("n_routings"))
+
+
+def oracle_run(device, tapes: dict, take) -> dict:
+    """Phase 16's solves on ``device``: SA at d = 0.9 from a random and a
+    greedy start (each on its tape), greedy, exact on a 4-job subset,
+    Lemma 8's bounds, alpha and Corollary 1's factor.  Every field but
+    the walls and launches is compared card against CPU.  ``take()``
+    reads the min-plus launch counters and sets them to 0."""
+    from repro_torch.core import bounds, solvers
+
+    out = {"launches": {}, "walls": {}}
+    net, batch, jobs = paper_small(device)
+    for init, tape in tapes.items():
+        take()
+        plan = solvers.solve(net, batch, method="sa", init=init, tape=tape,
+                             **SA_CHECK)
+        out["launches"][f"sa {init}"] = take()
+        out["walls"][f"sa {init}"] = plan.meta["solve_s"]
+        out[f"sa {init}"] = plan_fields(plan)
+    take()
+    out["greedy"] = plan_fields(solvers.solve(net, batch, method="greedy"))
+    out["launches"]["greedy"] = take()
+    sub_net, sub_batch, _ = paper_small(device, EXACT_JOBS)
+    ex = solvers.solve(sub_net, sub_batch, method="exact")
+    out["launches"]["exact"] = take()
+    out["exact"] = plan_fields(ex)
+    s_ss, avg = bounds.service_lower_bounds(net, batch)
+    out["launches"]["bounds"] = take()
+    out["bounds"] = (s_ss.tolist(), avg, bounds.alpha(net, jobs),
+                     bounds.corollary1_factor(net))
+    return out
+
+
+def oracles_phase(dev, smi: str) -> dict:
+    """Phase 16; returns the path's min-plus launches by entry and the
+    walls PERF.md records."""
+    import torch
+    from repro_torch.core import annealing, solvers
+    from repro_torch.kernels import minplus
+
+    tally = dict.fromkeys(minplus.ENTRIES, 0)
+
+    def take():
+        counts = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+        minplus.reset_launch_count()
+        for e in counts:
+            tally[e] += counts[e]
+        return counts
+
+    _, cpu_batch, _ = paper_small("cpu")
+    n_jobs, k = cpu_batch.num_jobs, SA_CHECK["num_chains"]
+    iters = annealing._num_iters(1.0, 1e-3, SA_CHECK["d"])
+    tapes = {init: annealing.draw_tape(
+        cpu_batch.num_layers.numpy(), 5, cpu_batch.max_layers, seed=seed,
+        num_chains=k, iters=iters)
+        for seed, init in enumerate(("random", "greedy"))}
+    minplus.reset_launch_count()
+    t0 = time.perf_counter()
+    card = oracle_run(dev, tapes, take)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = oracle_run("cpu", tapes, lambda: {})
+    cpu_s = time.perf_counter() - t0
+    walls, launches = card.pop("walls"), card.pop("launches")
+    cpu.pop("walls"), cpu.pop("launches")
+    for key in cpu:
+        if card[key] != cpu[key]:
+            raise AssertionError(f"phase 16: {key} differs card vs CPU")
+    # one closure launch a job routed, evaluated or replayed (V = 5), no
+    # product: SA K (iters + 1) J + J for the replay (+ greedy's J)
+    sa_launches = k * (iters + 1) * n_jobs + n_jobs
+    want = {"greedy": n_jobs, "sa random": sa_launches,
+            "sa greedy": sa_launches + n_jobs,
+            "exact": card["exact"][-1], "bounds": 1}
+    for what, n in want.items():
+        if launches[what] != {"product": 0, "closure": n}:
+            raise AssertionError(f"{what}: min-plus launches "
+                                 f"{launches[what]}, expected {n} closure "
+                                 f"and no product")
+    log(f"paper-small (V=5, {n_jobs} jobs) on the card: SA d={SA_CHECK['d']} "
+        f"({iters} iterations) x {k} chains from a random and a greedy "
+        f"start, greedy, exact on {EXACT_JOBS} jobs ({card['exact'][-1]} "
+        f"routings), Lemma 8 bounds, alpha: {card_s:.2f} s wall (the CPU "
+        f"run {cpu_s:.2f} s); plans, histories, queues, paths and bounds "
+        f"== the CPU run bit for bit; launches {launches}")
+    s_ss, avg, alpha, cor1 = card["bounds"]
+    log(f"  SA makespan bound {max(card['sa random'][2]):.6g} s (random "
+        f"start) / {max(card['sa greedy'][2]):.6g} s (greedy start), greedy "
+        f"{max(card['greedy'][2]):.6g} s; exact makespan bound "
+        f"{max(card['exact'][2]):.6g} s; S_SS max {max(s_ss):.6g} s, "
+        f"averaged {avg:.6g} s; alpha {alpha:.6g}, 2 - 1/|V| {cor1}")
+
+    # the paper's Fig. 5 setting, on the card only
+    net, batch, _ = paper_small(dev)
+    fig_iters = annealing._num_iters(1.0, 1e-3, FIG5["d"])
+    per_eval = walls["sa random"] / (k * (iters + 1))
+    chains = FIG5["num_chains"]
+    estimate = per_eval * chains * (fig_iters + 1)
+    if estimate > FIG5_LIMIT_S:
+        log(f"  Fig. 5 estimate {estimate:.1f} s for {chains} chains "
+            f"({per_eval * 1e3:.2f} ms an evaluation) exceeds "
+            f"{FIG5_LIMIT_S:.0f} s: one chain")
+        chains = 1
+    greedy_s = []
+    for _ in range(10):
+        plan = solvers.solve(net, batch, method="greedy")
+        greedy_s.append(plan.meta["solve_s"])
+    g_bound = plan.bound()
+    take()
+    sa = solvers.solve(net, batch, method="sa", seed=0,
+                       **dict(FIG5, num_chains=chains))
+    fig5 = take()
+    want = chains * (fig_iters + 1) * n_jobs + n_jobs
+    if fig5 != {"product": 0, "closure": want}:
+        raise AssertionError(f"Fig. 5 SA: launches {fig5}, expected {want} "
+                             f"closure and no product")
+    sim = sa.simulate(net, batch)
+    if not sa.bound() >= sim.makespan:
+        raise AssertionError(f"Fig. 5 SA: bound {sa.bound()} < simulated "
+                             f"{sim.makespan}")
+    take()
+    g_med = statistics.median(greedy_s)
+    log(f"  Fig. 5 setting (d={FIG5['d']}, {fig_iters} iterations, "
+        f"{chains} chains, block moves {FIG5['block_move_prob']}): SA "
+        f"solve_s {sa.meta['solve_s']:.2f} s, {fig5['closure']} closure "
+        f"launches ({sa.meta['solve_s'] / fig5['closure'] * 1e6:.1f} us "
+        f"each of wall), bound {sa.bound():.6g} s (sim {sim.makespan:.6g}); "
+        f"greedy solve_s median {g_med * 1e3:.2f} ms over 10 (min "
+        f"{min(greedy_s) * 1e3:.2f}, max {max(greedy_s) * 1e3:.2f}), bound "
+        f"{g_bound:.6g} s; SA / greedy wall {sa.meta['solve_s'] / g_med:.0f}x "
+        f"on {smi}")
+    d20 = math.exp(math.log(1e-3) / 19.5)
+    if annealing._num_iters(1.0, 1e-3, d20) != 20:
+        raise AssertionError("the profiled SA does not take 20 iterations")
+    if profiler_works():
+        profile_device("a 20-iteration SA (one chain, paper-small)",
+                       lambda: solvers.solve(net, batch, method="sa", d=d20))
+    take()
+    return {"launches": dict(tally), "fig5_chains": chains,
+            "fig5_s": sa.meta["solve_s"], "greedy_s": g_med}
+
+
+# -- phase 17: olmoe-1b-7b and deepseek-v2 at full width ---------------------
+
+OLMOE_SHAPE = (64, 2048, 128)        # [B*H, S, hd] of olmoe at B=4, S=2048
+MLA_SHAPE = (128, 2048, 192, 128)    # [B*H, S, d, dv] of MLA at B=1, S=2048
+DEEPSEEK_LAYERS = 1                  # of 60: one layer is ~5.0 B params
+
+
+def cast_params(params: dict, dtype) -> dict:
+    """``params`` in ``dtype``, the MoE router kept float32 (as the
+    reference's init and the port's draw it)."""
+    def conv(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: conv(v, k) for k, v in tree.items()}
+        return tree if key == "router" else tree.to(dtype)
+    return conv(params)
+
+
+def spy_prefill(step, params, batch):
+    """(logits, per-layer expert choices [N, k], (dropped, total) pairs) of
+    one prefill: ``moe.route`` and ``moe.dispatch`` wrapped to keep what
+    each layer chose and dropped (device tensors, read once after)."""
+    from repro_torch.models import moe
+    choices, drops = [], []
+    route, dispatch = moe.route, moe.dispatch
+
+    def route_spy(*args):
+        out = route(*args)
+        choices.append(out[1])
+        return out
+
+    def dispatch_spy(*args):
+        out = dispatch(*args)
+        drops.append(((~out[2]).sum(), out[2].numel()))
+        return out
+
+    moe.route, moe.dispatch = route_spy, dispatch_spy
+    try:
+        logits = step(params, batch)
+    finally:
+        moe.route, moe.dispatch = route, dispatch
+    return logits, choices, drops
+
+
+def drop_share(drops) -> float:
+    return (sum(int(d) for d, _ in drops) / max(sum(n for _, n in drops), 1))
+
+
+def held_positions(a: list, b: list, s: int) -> int:
+    """The positions a flash-vs-xla check holds (B = 1): those before the
+    first token whose experts differ between the two runs in any layer.
+    Top-k routing is discontinuous, so two correct evaluations may route a
+    token whose k-th and (k+1)-th probabilities tie within rounding to
+    different experts; a causal model's earlier positions never see that
+    token, and capacity ranks follow token order, so they are unaffected."""
+    first = s
+    for x, y in zip(a, b):
+        differ = (x != y).any(-1).nonzero().flatten().tolist()
+        if differ:
+            first = min(first, differ[0])
+    return first
+
+
+def flash_check_f32(name, cfg32, params, toks, dev, want_counts):
+    """float32 prefill, flash against xla (TF32 off): launches, logits at
+    3e-4 on the held positions; returns (counts, max err, held)."""
+    import torch
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    s = toks.shape[1]
+    flash.reset_launch_count()
+    got, ch_f, _ = spy_prefill(steps.make_prefill_step(cfg32, device=dev),
+                               params, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    want, ch_x, _ = spy_prefill(steps.make_prefill_step(dataclasses.replace(
+        cfg32, attn_impl="xla"), device=dev), params, {"tokens": toks})
+    if counts != want_counts:
+        raise AssertionError(f"{name} float32 prefill: flash launches "
+                             f"{counts}, expected {want_counts}")
+    if got.shape != (1, s, cfg32.padded_vocab):
+        raise AssertionError(f"{name}: logits shape {tuple(got.shape)}")
+    held = held_positions(ch_f, ch_x, s)
+    if held < s // 2:
+        raise AssertionError(f"{name}: expert choices of flash and xla "
+                             f"differ from position {held} of {s}")
+    err = max_err_within(got[:, :held], want[:, :held], 3e-4,
+                         f"{name} float32 prefill flash vs xla")
+    rest = ("" if held == s else f" (from position {held} on a token is "
+            f"routed to other experts in the two runs)")
+    log(f"{name} float32 prefill B=1 S={s} (TF32 off): flash vs xla logits "
+        f"max |diff| {err:.3e} (tolerance 3e-4) over {held} of {s} "
+        f"positions{rest}; launches {counts}")
+    return counts, err, held
+
+
+def time_prefill(step, params, batch, n: int = 5) -> list:
+    import torch
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def hold_and_time_fwd(rng, dev, heads, bh, s, d, dv, smi):
+    """The bf16 forward kernel that the dispatch rule picks at [bh, s, d ->
+    dv] (``heads`` per batch row) against its plain version; its time, the
+    plain version's, SDPA's on [bh / heads, heads, s, d] (None where SDPA
+    refuses the shape) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ref
+    variant = flash.kernel_variant("flash_fwd_lse", torch.bfloat16, d, dv)
+    q, k, v = flash_inputs(rng, bh, s, d, dv, "bfloat16", dev)
+    scale = 1 / math.sqrt(d)
+    o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
+    want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
+                                             causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL["bfloat16"]
+    width = f"{d}->{dv}" if d != dv else f"{d}"
+    what = f"flash_fwd_lse ({variant}) bf16 [{bh},{s},{width}] causal"
+    err = max(max_err_within(o, want_o, atol, what + " O", rtol),
+              max_err_within(lse, want_lse, LSE_TOL, what + " lse"))
+    log(f"{what}: max |O - plain| (and lse) {err:.3e}, share of the O gate "
+        f"{gate_share(o, want_o, atol, rtol):.3f}")
+    del o, lse, want_o, want_lse
+    t = {"kernel": event_ms(lambda: flash.flash_fwd_lse(
+        q, k, v, scale=scale, causal=True), reps=10, inner=5),
+        "plain": event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
+                          reps=3, inner=2)}
+    qs, ks, vs = (x.unflatten(0, (-1, heads)) for x in (q, k, v))
+    try:
+        t["sdpa"] = event_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=scale), reps=10, inner=5)
+    except RuntimeError as exc:
+        log(f"  F.scaled_dot_product_attention refuses d={d}, dv={dv}: "
+            f"library time not measured ({str(exc)[:120]})")
+        t["sdpa"] = None
+    bound = flash_bound(bh, s, d, dv, "bfloat16", True, True)
+    sdpa = ("not measured" if t["sdpa"] is None
+            else f"{t['sdpa'] * 1e3:.1f} us")
+    log(f"  {what} on {smi}: {t['kernel'] * 1e3:.1f} us per call; bound "
+        f"{bound[0] * 1e3:.2f} us ({bound[1]}); plain version "
+        f"{t['plain'] * 1e3:.1f} us; F.scaled_dot_product_attention "
+        f"(library yardstick) {sdpa}")
+    return {"variant": variant, "err": err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "sdpa_ms": t["sdpa"], "bound": bound,
+            "shape": f"[{bh},{s},{width}] bf16"}
+
+
+def moe_mla_phase(dev, smi: str) -> dict:
+    """Phase 17; returns the forward kernels' launches on this path and
+    their checks and times at the path's shapes."""
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    out = {"launches": {}}
+
+    # -- olmoe-1b-7b: all 16 layers, 16 heads of 128, 64 experts top-8
+    full = registry.config("olmoe_1b_7b")
+    bh, s, d = OLMOE_SHAPE
+    if (4 * full.num_heads, full.head_dim) != (bh, d):
+        raise AssertionError(f"olmoe-1b-7b config: {full}")
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, attn_impl="flash")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                           device=dev)
+    log(f"olmoe-1b-7b at full width ({full.num_layers} layers): "
+        f"{M.param_count(params):,} params (random, seed 0), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts, _, _ = flash_check_f32(
+        "olmoe-1b-7b", cfg32, params, rng.integers(0, full.vocab_size,
+                                                   (1, 512)), dev,
+        {"flash_fwd_lse/simt": full.num_layers})
+    out["launches"]["olmoe-1b-7b float32 prefill"] = counts
+    params = cast_params(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, attn_impl="flash")
+    step = steps.make_prefill_step(cfg, device=dev)
+    batch = {"tokens": rng.integers(0, full.vocab_size, (4, 2048))}
+    step(params, batch)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_count()
+    logits, _, drops = spy_prefill(step, params, batch)
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {"flash_fwd_lse/sm90": full.num_layers}:
+        raise AssertionError(f"olmoe-1b-7b bf16 prefill: flash launches "
+                             f"{counts}, expected {full.num_layers} of the "
+                             f"tensor-core forward and none of the "
+                             f"CUDA-core one")
+    if logits.shape != (4, 2048, full.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("olmoe-1b-7b bf16 logits not finite or "
+                             "misshapen")
+    del logits
+    out["launches"]["olmoe-1b-7b bf16 prefill"] = counts
+    log(f"olmoe-1b-7b bf16 prefill B=4 S=2048: flash launches {counts} at "
+        f"[{bh},{s},{d}]; logits finite; token-slots dropped by capacity "
+        f"{drop_share(drops):.4f} (cf {full.moe_capacity_factor}); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+
+    # decode: the engine's tokens against a serve_step loop's
+    prompts = rng.integers(0, full.vocab_size, (4, 32))
+    engine = DecodeEngine(cfg, params, max_len=64, device=dev)
+    res = engine.generate(prompts, 16)
+    with torch.no_grad():
+        cache = M.init_cache(cfg, 4, 64, device=dev)
+        toks = torch.as_tensor(prompts, device=dev)
+        for i in range(32):
+            lg, cache = M.serve_step(cfg, params, cache,
+                                     {"tokens": toks[:, i:i + 1], "pos": i})
+        loop = []
+        for j in range(16):
+            tok = torch.argmax(lg, -1)[:, None]
+            loop.append(tok[:, 0])
+            lg, cache = M.serve_step(cfg, params, cache,
+                                     {"tokens": tok, "pos": 32 + j})
+    loop = torch.stack(loop, 1).cpu().numpy()
+    if not np.array_equal(res.tokens, loop):
+        raise AssertionError("olmoe-1b-7b: DecodeEngine tokens != the "
+                             "serve_step loop's")
+    del cache, engine
+    log(f"olmoe-1b-7b DecodeEngine, 4 prompts x 32 tokens, 16 generated: "
+        f"tokens == a serve_step loop's; {res.tokens_per_s:.1f} tok/s "
+        f"(prefill {res.prefill_s:.2f} s, decode {res.decode_s:.2f} s) on "
+        f"{smi}")
+
+    out["olmoe"] = hold_and_time_fwd(rng, dev, full.num_heads, bh, s, d, d,
+                                     smi)
+    ms = time_prefill(step, params, batch)
+    out["olmoe_prefill_ms"] = statistics.median(ms)
+    log(f"  prefill step olmoe-1b-7b B=4 S=2048 bf16: median "
+        f"{statistics.median(ms):.2f} ms over 5 (min {min(ms):.2f}, max "
+        f"{max(ms):.2f}); {4 * 2048 / statistics.median(ms) * 1e3:.0f} "
+        f"tokens/s on {smi}")
+    if profiler_works():
+        profile_device("one olmoe-1b-7b prefill (B=4, S=2048, bf16)",
+                       lambda: step(params, batch), top=10)
+    del params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- deepseek-v2 at full width, one layer: MLA (192 -> 128), 160 experts
+    full = dataclasses.replace(registry.config("deepseek_v2_236b"),
+                               num_layers=DEEPSEEK_LAYERS)
+    bh, s, d, dv = MLA_SHAPE
+    if (full.num_heads, full.qk_nope_head_dim + full.qk_rope_head_dim,
+            full.v_head_dim) != (bh, d, dv):
+        raise AssertionError(f"deepseek-v2 config: {full}")
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, attn_impl="flash")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                           device=dev)
+    log(f"deepseek-v2-236b at full width, depth {DEEPSEEK_LAYERS}: "
+        f"{M.param_count(params):,} params (random, seed 0), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts, _, _ = flash_check_f32(
+        "deepseek-v2", cfg32, params, rng.integers(0, full.vocab_size,
+                                                   (1, 512)), dev,
+        {"flash_fwd_lse/simt": DEEPSEEK_LAYERS})
+    out["launches"]["deepseek-v2 float32 prefill"] = counts
+
+    # the absorbed latent-cache decode against the materialized form, on
+    # the same 8 tokens (float32, TF32 off)
+    toks = torch.as_tensor(rng.integers(0, full.vocab_size, (1, 8)),
+                           device=dev)
+    cfgx = dataclasses.replace(cfg32, attn_impl="xla")
+    with torch.no_grad():
+        want = M.prefill_logits(cfgx, params, {"tokens": toks})
+        cache = M.init_cache(cfgx, 1, 8, device=dev)
+        got = []
+        for i in range(8):
+            lg, cache = M.serve_step(cfgx, params, cache,
+                                     {"tokens": toks[:, i:i + 1], "pos": i})
+            got.append(lg)
+    got = torch.stack(got, 1)
+    err = max_err_within(got, want, 0.11, "deepseek-v2 absorbed decode vs "
+                         "materialized prefill", rtol=0.05)
+    log(f"deepseek-v2 absorbed decode, 8 steps, against the materialized "
+        f"prefill's logits (float32): max |diff| {err:.3e} (the reference's "
+        f"decode tolerance atol 0.11, rtol 0.05)")
+    del cache, got, want
+
+    params = cast_params(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, attn_impl="flash")
+    step = steps.make_prefill_step(cfg, device=dev)
+    batch = {"tokens": rng.integers(0, full.vocab_size, (1, 2048))}
+    step(params, batch)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_count()
+    logits, _, drops = spy_prefill(step, params, batch)
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {"flash_fwd_lse/simt": DEEPSEEK_LAYERS}:
+        raise AssertionError(f"deepseek-v2 bf16 prefill: flash launches "
+                             f"{counts}, expected {DEEPSEEK_LAYERS} of the "
+                             f"CUDA-core forward (d != dv)")
+    if logits.shape != (1, 2048, full.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("deepseek-v2 bf16 logits not finite or "
+                             "misshapen")
+    del logits
+    out["launches"]["deepseek-v2 bf16 prefill"] = counts
+    log(f"deepseek-v2 bf16 prefill B=1 S=2048: flash launches {counts} at "
+        f"[{bh},{s},{d}->{dv}]; logits finite; token-slots dropped by "
+        f"capacity {drop_share(drops):.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    out["mla"] = hold_and_time_fwd(rng, dev, full.num_heads, bh, s, d, dv,
+                                   smi)
+    ms = time_prefill(step, params, batch)
+    out["deepseek_prefill_ms"] = statistics.median(ms)
+    log(f"  prefill step deepseek-v2 (1 layer) B=1 S=2048 bf16: median "
+        f"{statistics.median(ms):.2f} ms over 5 (min {min(ms):.2f}, max "
+        f"{max(ms):.2f}) on {smi}")
+    if profiler_works():
+        profile_device("one deepseek-v2 prefill (1 layer, B=1, S=2048, "
+                       "bf16)", lambda: step(params, batch), top=10)
+    del params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
-               catalog: dict, wide: dict, stack: dict) -> list[dict]:
+               catalog: dict, wide: dict, stack: dict, oracles: dict,
+               moe_mla: dict) -> list[dict]:
     """The kernels line.  The kernels on this run's newest paths report
-    those paths' launches (the serving stack's solves for the closure
-    kernel, the catalog's V = 48 solves for the product, minicpm-2b's
-    prefills); every path's count stands in "launches_by_path", and
-    "timed_at" names the shape of the row's times."""
+    those paths' launches (phase 16's SA, exact and bounds solves for the
+    closure kernel, the catalog's V = 48 solves for the product, the
+    olmoe-1b-7b and deepseek-v2 prefills of phase 17 for the forward);
+    every path's count stands in "launches_by_path".  "timed_at" names
+    the shape of the row's times; "also_timed" keeps the row's times at
+    the shapes of earlier paths."""
     from repro_torch.kernels import minplus
 
     for row, entry in zip(minplus_rows, minplus.ENTRIES):
         row["launches_by_path"] = {"§V large solves (phase 3)":
                                    row["launches"],
                                    "catalog (phase 13)": catalog[entry],
-                                   "serving stack (phase 15)": stack[entry]}
-        row["launches"] = stack[entry] or catalog[entry]
+                                   "serving stack (phase 15)": stack[entry],
+                                   "SA, exact and bounds (phase 16)":
+                                   oracles["launches"][entry]}
+        row["launches"] = oracles["launches"][entry] or catalog[entry]
         row["timed_at"] = "[62,24,24] f32"
+    runs = moe_mla["launches"]
     for row in flash_rows:
         row["timed_at"] = f"[{','.join(map(str, PREFILL_SHAPE))}] bf16"
-        if row["name"] == "flash_fwd_lse":
-            row["launches_by_path"] = {
-                "smollm-135m float32 prefill (phase 6)": row["launches"],
-                "minicpm-2b float32 prefill (phase 14)": wide["f32"]}
-            row["launches"] = wide["f32"]
-        elif row["name"] == "flash_fwd_lse_sm90":
-            row["launches_by_path"] = {
-                "smollm-135m bf16 prefill (phase 6)": row["launches"],
-                "minicpm-2b bf16 prefill (phase 14)": wide["bf16"]}
-            row.update(launches=wide["bf16"],
-                       max_abs_err=max(row["max_abs_err"], wide["err"]),
-                       ms=wide["ms"], plain_ms=wide["plain_ms"],
-                       bound_ms=wide["bound"][0], bound_by=wide["bound"][1],
-                       library_ms=wide["sdpa_ms"],
-                       timed_at=f"[{','.join(map(str, MINICPM_SHAPE))}] "
-                                f"bf16")
+        if row["name"] not in ("flash_fwd_lse", "flash_fwd_lse_sm90"):
+            continue
+        variant = "simt" if row["name"] == "flash_fwd_lse" else "sm90"
+        new = moe_mla["mla" if variant == "simt" else "olmoe"]
+        earlier = ("smollm-135m float32 prefill (phase 6)",
+                   "minicpm-2b float32 prefill (phase 14)", wide["f32"]) \
+            if variant == "simt" else \
+            ("smollm-135m bf16 prefill (phase 6)",
+             "minicpm-2b bf16 prefill (phase 14)", wide["bf16"])
+        row["launches_by_path"] = {earlier[0]: row["launches"],
+                                   earlier[1]: earlier[2]}
+        for what, counts in runs.items():
+            n = counts.get(f"flash_fwd_lse/{variant}", 0)
+            if n:
+                row["launches_by_path"][f"{what} (phase 17)"] = n
+        also = {row["timed_at"]: {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms")}}
+        if variant == "sm90":
+            also[f"[{','.join(map(str, MINICPM_SHAPE))}] bf16"] = {
+                "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+                "bound_ms": wide["bound"][0], "library_ms": wide["sdpa_ms"]}
+        row.update(launches=sum(counts.get(f"flash_fwd_lse/{variant}", 0)
+                                for counts in runs.values()),
+                   max_abs_err=max(row["max_abs_err"], new["err"],
+                                   wide["err"] if variant == "sm90" else 0),
+                   ms=new["ms"], plain_ms=new["plain_ms"],
+                   bound_ms=new["bound"][0], bound_by=new["bound"][1],
+                   library_ms=new["sdpa_ms"], timed_at=new["shape"],
+                   also_timed=also)
     return minplus_rows + flash_rows
 
 
@@ -1992,10 +2554,16 @@ def main() -> int:
     t15 = time.perf_counter()
     stack = serving_stack_phase(dev, smi)
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    oracles = oracles_phase(dev, smi)
+    log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    moe_mla = moe_mla_phase(dev, smi)
+    log(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
     rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
-                      wide, stack)
-    log(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+                      wide, stack, oracles, moe_mla)
+    log(f"phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,8 +3,8 @@ evaluation models.
 
 Counterpart of ``repro.configs.registry``.  Every architecture has its
 ``config()``, ``smoke_config()`` and ``cost_profile()``; the models of the
-non-dense families are not ported yet (``models.model.init_params`` raises
-for them).
+ssm, hybrid, encdec and vlm families are not ported yet
+(``models.model.init_params`` raises for them).
 """
 from __future__ import annotations
 

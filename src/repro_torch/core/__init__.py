@@ -1,5 +1,6 @@
 # The paper's routing framework (§III-§IV) on PyTorch tensors: the
-# layered-graph model, Algorithm 1 (greedy and lazy greedy), the
+# layered-graph model, Algorithm 1 (greedy and lazy greedy), Algorithm 2
+# (simulated annealing), the exact oracles and Theorem 2's bounds, the
 # event-driven simulator with both event engines, the committed-work
 # ledger and the arrival processes.  Min-plus closures go through the CUDA kernel of
 # repro_torch.kernels on the GPU.
@@ -18,12 +19,14 @@ from .plan import Plan
 from .solvers import Solver, solve, register as register_solver, \
     available as available_solvers
 from .greedy import greedy_route
+from .annealing import SAResult, anneal, evaluate_solution
 from .schedule import SimResult, replay_solution, simulate
 from .eventsim import EventEngine
 from .completions import (CommittedWork, LedgerJob, drain_exact,
                           exact_backlog_trace, replay_piecewise,
                           run_to_completion)
-from . import completions, eventsim, shortest_path, solvers
+from . import (bounds, completions, eventsim, exact, layered_graph,
+               shortest_path, solvers)
 
 __all__ = [
     "ComputeNetwork", "INF", "make_network", "small_topology", "us_backbone",
@@ -35,9 +38,10 @@ __all__ = [
     "Closures", "build_closures", "build_closures_batch",
     "closure_build_count", "reset_closure_build_count",
     "Plan", "Solver", "solve", "register_solver", "available_solvers",
-    "greedy_route",
+    "greedy_route", "SAResult", "anneal", "evaluate_solution",
     "SimResult", "replay_solution", "simulate", "EventEngine",
     "CommittedWork", "LedgerJob", "drain_exact", "exact_backlog_trace",
     "replay_piecewise", "run_to_completion",
-    "completions", "eventsim", "shortest_path", "solvers",
+    "bounds", "completions", "eventsim", "exact", "layered_graph",
+    "shortest_path", "solvers",
 ]

@@ -175,6 +175,13 @@ def node_wait(net: ComputeNetwork) -> torch.Tensor:
     return torch.where(mu > 0, net.q_node / torch.clamp(mu, min=1e-30), 0.0)
 
 
+def edge_list(net: ComputeNetwork) -> list[tuple[int, int]]:
+    """Directed edges (host-side helper)."""
+    mu = net.mu_link.cpu().numpy()
+    us, vs = np.nonzero(mu > 0)
+    return list(zip(us.tolist(), vs.tolist()))
+
+
 # ---------------------------------------------------------------------------
 # The paper's two evaluation topologies.
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of ``repro.core.solvers``.  Every algorithm is a
 :class:`Solver`: a callable ``(net, batch, **opts) -> Plan`` registered
 under a short method name.  Ported methods: ``greedy`` (Algorithm 1),
-``greedy_ref`` (the host-driven round loop it is held against), ``lazy``
+``greedy_ref`` (the host-driven round loop it is held against), ``lazy``,
+``sa`` (Algorithm 2), ``exact`` (every priority order routed exactly)
 and ``migrate`` (the fault layer's one-node re-placement);
 :func:`available` lists exactly what is registered.  :func:`solve_fused`
 solves several queued arrival windows in one call.
@@ -140,6 +141,18 @@ def _solve_greedy_ref(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
 def _solve_lazy(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
     from . import greedy
     return greedy.greedy_route(net, batch, lazy=True, **opts)
+
+
+@register("sa")
+def _solve_sa(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    from . import annealing
+    return annealing.anneal(net, batch, **opts)
+
+
+@register("exact")
+def _solve_exact(net: ComputeNetwork, batch: JobBatch, **opts) -> Plan:
+    from . import exact
+    return exact.exact_plan(net, batch, **opts)
 
 
 @register("migrate")

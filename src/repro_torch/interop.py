@@ -44,20 +44,24 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, *,
                          device: str | torch.device) -> dict:
     """The port's LM params from the reference's param pytree as numpy.
 
-    ``tree`` is ``{"blocks": {"attn": {wq, wk, wv, wo}, "ln1", "ln2",
-    "mlp": {w_up, w_gate, w_down}} stacked [L, ...], "embed": {"tok"[,
-    "head"]}, "ln_f"}`` with numpy leaves.  bfloat16 weights cross as
+    ``tree`` is ``{"blocks": {"attn", "ln1", "ln2", "mlp" | "moe"}
+    stacked [L, ...], "embed": {"tok"[, "head"]}, "ln_f"}`` with numpy
+    leaves: "attn" holds {wq, wk, wv, wo}, or for MLA {w_kv_a, kv_a_norm,
+    w_uk, w_uv, wo, and w_q_a, q_a_norm, w_q_b or w_q}; "moe" holds
+    {router, w_gate, w_up, w_down[, shared]}.  bfloat16 weights cross as
     float32 arrays that hold bfloat16 values (numpy has no bfloat16
     without ``ml_dtypes``); every leaf is cast to ``cfg.dtype``, which is
-    lossless for those.
+    lossless for those, except the MoE router, which stays float32 as in
+    the reference.
     """
     dev = resolve_device(device)
 
-    def convert(x):
+    def convert(x, key=""):
         if isinstance(x, Mapping):
-            return {k: convert(v) for k, v in x.items()}
+            return {k: convert(v, k) for k, v in x.items()}
         return torch.from_numpy(np.array(x, np.float32)).to(
-            device=dev, dtype=cfg.dtype)
+            device=dev,
+            dtype=torch.float32 if key == "router" else cfg.dtype)
 
     return convert(tree)
 

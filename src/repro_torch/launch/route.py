@@ -2,10 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.route --topology us \
       --jobs vgg19:6,resnet34:2,synthetic:2 --scale 1e-4 \
-      --methods greedy,lazy --seed 0 --device cuda
+      --methods greedy,sa --seed 0 --device cuda
 
 ``--methods`` takes any comma list of registered solver names (see
-``repro_torch.core.solvers.available()``).  ``--device`` defaults to
+``repro_torch.core.solvers.available()``), e.g. ``greedy,lazy,sa,exact``;
+``sa`` runs the reference's defaults (4 chains, cooling factor
+``sa_iters_d``).  ``--device`` defaults to
 ``cuda`` and fails without a card; ``--device cpu`` runs the plain
 versions of the kernels on the CPU.
 """
@@ -17,7 +19,9 @@ import numpy as np
 
 from repro_torch.core import jobs as J, network as N, solvers
 from repro_torch.configs import registry
+from repro_torch.kernels import minplus
 
+_SA_DEFAULTS = dict(num_chains=4)
 
 def build_jobs(spec: str, num_nodes: int, seed: int) -> list[J.InferenceJob]:
     rng = np.random.default_rng(seed)
@@ -43,7 +47,8 @@ def build_jobs(spec: str, num_nodes: int, seed: int) -> list[J.InferenceJob]:
 
 
 def run(topology: str, jobs_spec: str, scale: float, methods: str, seed: int,
-        verbose: bool = True, device: str = "cuda") -> dict:
+        sa_iters_d: float = 0.995, verbose: bool = True,
+        device: str = "cuda") -> dict:
     net, names = (N.small_topology(capacity_scale=scale, device=device)
                   if topology == "small"
                   else N.us_backbone(capacity_scale=scale, device=device))
@@ -52,7 +57,12 @@ def run(topology: str, jobs_spec: str, scale: float, methods: str, seed: int,
     out = {"topology": topology, "scale": scale, "J": len(jobs)}
 
     for method in (m.strip() for m in methods.split(",") if m.strip()):
-        plan = solvers.solve(net, batch, method=method)
+        opts = {}
+        if method == "sa":
+            opts = dict(_SA_DEFAULTS, seed=seed, d=sa_iters_d)
+        launches0 = minplus.launch_count()
+        plan = solvers.solve(net, batch, method=method, **opts)
+        launches = minplus.launch_count() - launches0
         sim = plan.simulate(net, batch)
         out[f"{method}_s"] = plan.meta["solve_s"]
         out[f"{method}_bound"] = plan.bound()
@@ -61,7 +71,7 @@ def run(topology: str, jobs_spec: str, scale: float, methods: str, seed: int,
             print(f"[{method}] bound {plan.bound():.3f}s "
                   f"sim {sim.makespan:.3f}s "
                   f"({plan.meta['solve_s']:.2f}s to solve, "
-                  f"{plan.meta['kernel_launches']} kernel launches)")
+                  f"{launches} min-plus kernel launches)")
     return out
 
 
@@ -70,7 +80,7 @@ def main():
     ap.add_argument("--topology", default="small", choices=["small", "us"])
     ap.add_argument("--jobs", default="vgg19:2,resnet34:6")
     ap.add_argument("--scale", type=float, default=1e-4)
-    ap.add_argument("--methods", default="greedy,lazy",
+    ap.add_argument("--methods", default="greedy,sa",
                     help="comma list of registered solvers "
                          f"(available: {','.join(solvers.available())})")
     ap.add_argument("--seed", type=int, default=0)

@@ -192,9 +192,10 @@ def causal_mask(s: int, t: int, window: int = 0, device=None) -> torch.Tensor:
     return m[None, None]
 
 
-def _flash_bshd(q, k, v) -> torch.Tensor:
+def _flash_bshd(q, k, v, *, scale: float | None = None) -> torch.Tensor:
     """[B,S,H,hd] -> the flash kernel on [B*H, S, hd] (GQA repeated here,
-    outside the kernel, as the reference does)."""
+    outside the kernel, as the reference does); ``scale`` defaults to
+    1/sqrt(hd)."""
     b, s, h, hd = q.shape
     rep = h // k.shape[2]
     if rep > 1:
@@ -205,7 +206,8 @@ def _flash_bshd(q, k, v) -> torch.Tensor:
         return x.movedim(2, 1).reshape(b * h, s, x.shape[-1]).contiguous()
 
     out = kops.flash_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),
-                               scale=1.0 / math.sqrt(hd))
+                               scale=(1.0 / math.sqrt(hd) if scale is None
+                                      else scale))
     return out.reshape(b, h, s, -1).movedim(1, 2)
 
 

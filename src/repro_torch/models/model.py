@@ -1,7 +1,7 @@
 """Unified model API: one config dataclass + family dispatch.
 
-Counterpart of ``repro.models.model`` for the dense family (the serving
-and training paths):
+Counterpart of ``repro.models.model`` for the dense and moe families
+(dense, MoE and MLA blocks; the serving and training paths):
 
     init_params(cfg, generator, device=)          -> params dict
     prefill_logits(cfg, params, batch)            -> [B, S, vocab] float32
@@ -11,8 +11,8 @@ and training paths):
 
 ``batch`` is a dict: 'tokens' [B, S] (a tensor on the params' device),
 plus 'labels' [B, S] for the loss and the int 'pos' during decode.  The
-other families (moe, ssm, hybrid, encdec, vlm) raise
-``NotImplementedError`` naming their ROADMAP item.
+other families (ssm, hybrid, encdec, vlm) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from ..device import resolve_device
 from . import common as cm
 from . import transformer
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +109,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 12); ported: {PORTED_FAMILIES}")
-    if cfg.use_mla or cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA blocks are not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            f"(ROADMAP Queue 1 item 12b); ported: {PORTED_FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,

@@ -1,16 +1,16 @@
-"""Decoder-only transformer LM: the dense family.
+"""Decoder-only transformer LM covering the dense / MoE / MLA families.
 
-Counterpart of ``repro.models.transformer`` for llama-style dense blocks
-(smollm-135m, olmo-1b) and gemma3-style local/global sliding windows.  The
-MoE and MLA blocks of the reference are not ported yet (ROADMAP Queue 1
-item 12): ``repro_torch.models.model`` refuses a config that asks for
-them before it reaches this module.
+Counterpart of ``repro.models.transformer``: llama-style dense blocks
+(smollm-135m, olmo-1b, minicpm-2b), gemma3-style local/global sliding
+windows, MoE blocks with shared + routed experts (olmoe-1b-7b,
+deepseek-v2-236b; :mod:`repro_torch.models.moe`) and MLA with the
+absorbed-form decode (deepseek-v2; :mod:`repro_torch.models.mla`).
 
 Blocks are stacked ``[L, ...]`` as in the reference; the reference scans
 them, the port loops over layer views (``scan_layers`` computes the same
-function either way).  The KV cache is updated **in place**: the
-reference's ``decode_step`` returns an updated copy, the port writes into
-the cache it is given and returns that same dict.
+function either way).  The KV cache (the latent cache for MLA) is updated
+**in place**: the reference's ``decode_step`` returns an updated copy, the
+port writes into the cache it is given and returns that same dict.
 """
 from __future__ import annotations
 
@@ -18,22 +18,46 @@ import torch
 
 from ..pytree import tree_map
 from . import common as cm
+from .mla import init_mla, init_mla_cache, mla_attention
+from .moe import init_moe, moe_block
 
 
-def _block_init(gen: torch.Generator, cfg) -> dict:
-    return {
-        "attn": cm.init_attention(gen, cfg.d_model, cfg.num_heads,
-                                  cfg.num_kv_heads, cfg.head_dim, cfg.dtype),
-        "ln1": cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
-        "ln2": cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
-        "mlp": cm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype),
-    }
+def _block_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
+    """One block's params, each weight drawn on the CPU and moved to
+    ``device`` as it is drawn."""
+    def put(tree):
+        return tree_map(lambda x: x.to(device), tree)
+
+    p = {}
+    if cfg.use_mla:
+        p["attn"] = init_mla(gen, cfg, device)
+    else:
+        p["attn"] = put(cm.init_attention(gen, cfg.d_model, cfg.num_heads,
+                                          cfg.num_kv_heads, cfg.head_dim,
+                                          cfg.dtype))
+    p["ln1"] = put(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype))
+    p["ln2"] = put(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype))
+    if cfg.moe_num_experts > 0:
+        p["moe"] = init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = put(cm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
+    return p
 
 
-def _stack(trees: list) -> dict | torch.Tensor:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_layers(n: int, draw) -> dict:
+    """``n`` draws of a block's param tree stacked along a leading layer
+    axis: the stacked tensors are allocated on the first draw's device and
+    each draw is copied in as it comes, so the device holds the stack and
+    one block, and the host one weight, at a time."""
+    first = draw()
+    out = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                         dtype=x.dtype, device=x.device),
+                   first)
+    for i in range(n):
+        tree = first if i == 0 else draw()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        first = tree = None
+    return out
 
 
 def _layer(tree, i: int):
@@ -44,16 +68,19 @@ def _layer(tree, i: int):
 
 
 def init(gen: torch.Generator, cfg, device: torch.device) -> dict:
-    """Random params drawn from ``gen`` on the CPU, then moved to
-    ``device``, so a seed gives the same weights on every device."""
-    blocks = _stack([_block_init(gen, cfg) for _ in range(cfg.num_layers)])
-    params = {
+    """Random params drawn from ``gen`` on the CPU, weight by weight, each
+    moved to ``device`` as it is drawn, so a seed gives the same weights
+    on every device and host memory holds one weight at a time."""
+    blocks = _stack_layers(cfg.num_layers,
+                           lambda: _block_init(gen, cfg, device))
+    embed = cm.init_embed(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype,
+                          tie=cfg.tie_embeddings)
+    return {
         "blocks": blocks,
-        "embed": cm.init_embed(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype,
-                               tie=cfg.tie_embeddings),
-        "ln_f": cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
+        "embed": tree_map(lambda x: x.to(device), embed),
+        "ln_f": tree_map(lambda x: x.to(device),
+                         cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype)),
     }
-    return tree_map(lambda x: x.to(device), params)
 
 
 def _layer_windows(cfg) -> list[int]:
@@ -67,7 +94,11 @@ def _layer_windows(cfg) -> list[int]:
 
 def _block_apply(cfg, p, h, positions, window, kv_cache=None, cache_pos=None):
     x = cm.apply_norm(p["ln1"], h, cfg.norm)
-    if cfg.local_global_pattern > 0:
+    if cfg.use_mla:
+        attn_out, new_cache = mla_attention(p["attn"], x, positions, cfg,
+                                            kv_cache=kv_cache,
+                                            cache_pos=cache_pos)
+    elif cfg.local_global_pattern > 0:
         attn_out, new_cache = _dyn_window_attention(
             cfg, p["attn"], x, positions, window, kv_cache, cache_pos)
     else:
@@ -79,6 +110,8 @@ def _block_apply(cfg, p, h, positions, window, kv_cache=None, cache_pos=None):
             attn_impl=cfg.attn_impl, grouped=cfg.gqa_grouped)
     h = h + attn_out
     x = cm.apply_norm(p["ln2"], h, cfg.norm)
+    if cfg.moe_num_experts > 0:
+        return h + moe_block(p["moe"], x, cfg), new_cache
     return h + cm.mlp(p["mlp"], x), new_cache
 
 
@@ -141,7 +174,10 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 
 
 def init_cache(cfg, batch: int, max_len: int, device: torch.device) -> dict:
-    """Stacked per-layer KV cache {'k','v'} [L, B, max_len, Hkv, hd]."""
+    """Stacked per-layer KV cache {'k','v'} [L, B, max_len, Hkv, hd] (the
+    latent cache {'c_kv', 'k_rope'} for MLA)."""
+    if cfg.use_mla:
+        return init_mla_cache(cfg, batch, max_len, device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

@@ -2,7 +2,9 @@
 against their plain versions, the greedy solve on the card against the
 same solve on the CPU, bit for bit (the §V instance, a window of each
 catalog scenario, an online window, a migrate solve and a fused stream
-window), and the flash-attention kernels
+window; SA on one draw tape, the exact solver and Lemma 8's bounds, with
+their closure launches), the olmoe and deepseek-v2 smoke prefills against
+the CPU port, and the flash-attention kernels
 (forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
 tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
@@ -501,3 +503,102 @@ def test_bf16_train_step_launches_the_tensor_core_kernels(cuda):
                    ("flash_bwd_dkv", "sm90"): n,
                    ("flash_bwd_dkv", "simt"): 0}
     assert torch.isfinite(loss)
+
+
+# -- Algorithm 2, the exact oracles and the MoE / MLA models on the card -----
+
+def _paper_small(device, n=8):
+    """The quickstart instance: the 5-node topology at capacity scale 1e-3
+    and the first ``n`` of 2 VGG19 + 6 ResNet34 drawn from
+    default_rng(0)."""
+    from repro_torch.configs import registry
+    net, _ = N.small_topology(capacity_scale=1e-3, device=device)
+    rng = np.random.default_rng(0)
+    jobs = []
+    for i, kind in enumerate(["vgg19"] * 2 + ["resnet34"] * 6):
+        s, d = rng.choice(5, 2, replace=False)
+        jobs.append(registry.get(kind).make_job(f"{kind}-{i}", int(s),
+                                                int(d)))
+    return net, J.batch_jobs(jobs[:n], device=device)
+
+
+@pytest.mark.parametrize("init", ["random", "greedy"])
+def test_sa_on_card_matches_cpu(cuda, init):
+    """SA on one draw tape, card against CPU bit for bit; one closure
+    launch a job per evaluation and per replayed job (and per greedy round
+    of the warm start), no product."""
+    from repro_torch.core import annealing
+    opts = dict(d=0.8, num_chains=2, init=init, block_move_prob=0.3)
+    net, batch = _paper_small(cuda)
+    iters = annealing._num_iters(1.0, 1e-3, opts["d"])
+    tape = annealing.draw_tape(batch.num_layers.cpu().numpy(), 5,
+                               batch.max_layers, seed=3, num_chains=2,
+                               iters=iters)
+    minplus.reset_launch_count()
+    gpu = solvers.solve(net, batch, method="sa", tape=tape, **opts)
+    torch.cuda.synchronize()
+    n = batch.num_jobs
+    want = 2 * (iters + 1) * n + n + (n if init == "greedy" else 0)
+    assert (minplus.launch_count("closure"),
+            minplus.launch_count("product")) == (want, 0)
+    cpu = solvers.solve(*_paper_small("cpu"), method="sa", tape=tape,
+                        **opts)
+    assert gpu.order.tolist() == cpu.order.tolist()
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    assert gpu.bounds.tolist() == cpu.bounds.tolist()
+    assert gpu.meta["history"].tolist() == cpu.meta["history"].tolist()
+    assert gpu.paths == cpu.paths
+    assert torch.equal(gpu.net.q_link.cpu(), cpu.net.q_link)
+
+
+def test_exact_and_bounds_on_card_match_cpu(cuda):
+    """The exact solver (one closure launch a routing) and Lemma 8's bounds
+    (one launch for the batch) on the card, equal to the CPU's."""
+    from repro_torch.core import bounds
+    minplus.reset_launch_count()
+    gpu = solvers.solve(*_paper_small(cuda, 4), method="exact")
+    torch.cuda.synchronize()
+    assert (minplus.launch_count("closure"),
+            minplus.launch_count("product")) == (gpu.meta["n_routings"], 0)
+    cpu = solvers.solve(*_paper_small("cpu", 4), method="exact")
+    assert gpu.order.tolist() == cpu.order.tolist()
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    assert gpu.bounds.tolist() == cpu.bounds.tolist()
+    minplus.reset_launch_count()
+    got = bounds.service_lower_bounds(*_paper_small(cuda))
+    torch.cuda.synchronize()
+    assert minplus.launch_count("closure") == 1
+    want = bounds.service_lower_bounds(*_paper_small("cpu"))
+    assert got[0].tolist() == want[0].tolist() and got[1] == want[1]
+
+
+@pytest.mark.parametrize("attn_impl,s", [("xla", 16), ("flash", 256)])
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b"])
+def test_moe_mla_smoke_prefill_on_card_matches_cpu(cuda, no_tf32, arch,
+                                                   attn_impl, s):
+    """The olmoe and deepseek-v2 smoke models (float32) on the card against
+    the CPU port on the same weights, at float32's 2e-4; the flash prefill
+    launches the CUDA-core forward once a layer (head widths 16, and 24 ->
+    16 for MLA)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import tree_map
+
+    cfg = dataclasses.replace(registry.smoke_config(arch),
+                              dtype=torch.float32, attn_impl=attn_impl)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, s))
+    flash.reset_launch_count()
+    got = steps.make_prefill_step(cfg)(
+        tree_map(lambda x: x.to(cuda), params), {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash.launch_count("flash_fwd_lse", "simt") == (
+        cfg.num_layers if attn_impl == "flash" else 0)
+    assert flash.launch_count("flash_fwd_lse", "sm90") == 0
+    want = steps.make_prefill_step(cfg, device="cpu")(params,
+                                                      {"tokens": toks})
+    _close(got.cpu(), want, 2e-4)

@@ -146,11 +146,12 @@ def test_route_cli_matches_reference():
 
 
 def test_registry_lists_only_ported_solvers():
-    assert TS.available() == ("greedy", "greedy_ref", "lazy", "migrate")
+    assert TS.available() == ("exact", "greedy", "greedy_ref", "lazy",
+                              "migrate", "sa")
     _, _, tnet, tbatch = _instance("quick")
-    with pytest.raises(ValueError,
-                       match="available: greedy, greedy_ref, lazy, migrate"):
-        tsolve(tnet, tbatch, method="sa")
+    with pytest.raises(ValueError, match="available: exact, greedy, "
+                       "greedy_ref, lazy, migrate, sa"):
+        tsolve(tnet, tbatch, method="nope")
     # every registry arch builds the reference's jobs; unknown ones raise
     spec = "gemma3_1b:1,deepseek_v2_236b:1,vgg19:1"
     for got, want in zip(troute.build_jobs(spec, 5, 0),

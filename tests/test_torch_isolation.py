@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points refuse to fall back to the CPU silently."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``networkx``, which the reference's bounds use and the port does not
+depend on), and its entry points refuse to fall back to the CPU
+silently."""
 import os
 import pathlib
 import re
@@ -31,10 +33,14 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.core.completions\n"
             "import repro_torch.serving.admission, repro_torch.serving.online\n"
             "import repro_torch.serving.faults, repro_torch.serving.stream\n"
+            "import repro_torch.core.annealing, repro_torch.core.bounds\n"
+            "import repro_torch.core.exact, repro_torch.core.layered_graph\n"
+            "import repro_torch.models.moe, repro_torch.models.mla\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
-            "       or m.startswith(('jax.', 'repro.', 'jaxlib'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
+            "       'networkx') or m.startswith(('jax.', 'repro.', 'jaxlib',\n"
+            "                                    'networkx.'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -43,7 +49,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch)"
+    r"^\s*(import\s+(jax|repro|networkx)\b(?!_torch)"
+    r"|from\s+(jax|repro|networkx)\b(?!_torch)"
     r"|from\s+\.+\s+import\s+.*\brepro\b)", re.M)
 
 
@@ -94,6 +101,10 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: steps.make_prefill_step(cfg),
         lambda: steps.make_serve_step(cfg),
         lambda: model.init_params(cfg, torch.Generator()),
+        lambda: model.init_params(registry.smoke_config("deepseek_v2_236b"),
+                                  torch.Generator()),
+        lambda: model.init_cache(registry.smoke_config("deepseek_v2_236b"),
+                                 1, 4),
         lambda: model.init_cache(cfg, 1, 4),
         lambda: interop.lm_params_from_numpy({}, cfg, device="cuda"),
         lambda: steps.make_train_step(cfg),
