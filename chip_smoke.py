@@ -146,7 +146,28 @@ Phases, each of which fails the run by exception:
      materialized prefill, the bf16 prefill at B=1, S=2048 (one CUDA-core
      launch); each model's forward kernel at its shape against its plain
      version, timed with its bound and SDPA; each prefill timed and
-     profiled.
+     profiled;
+ 18. the last four families at full width (random weights from seed 0;
+     every config with attn_impl="flash"): xlstm-125m (12 layers of
+     mLSTM / sLSTM), zamba2-2.7b (54 Mamba2 layers, a shared attention
+     block every 6), whisper-base (6 + 6 layers, 1,500 frames) each
+     float32 with TF32 off, card against the port's CPU run on the same
+     weights (the last prefill logits, 4 decode steps and every state
+     leaf after each, at 2e-4); phi-3-vision-4.2b (32 layers, head width
+     96, 576 patches) float32 flash against xla at 576 + 512 tokens (32
+     CUDA-core forward launches); then for each the bf16 prefill (xlstm
+     B=4 S=1024, zamba2 B=1 S=512, whisper B=4 x 1,500 frames with S=448,
+     phi-3-vision B=1 with 576 patches + 2048 tokens) with every launch
+     counter set to 0 just before and read just after (32 CUDA-core and
+     no tensor-core forward launches for phi-3-vision, no flash launch
+     for the others), finite logits, peak memory, timed; decode ==
+     prefill over 32 tokens at the reference's tolerance, a
+     ``DecodeEngine`` run of 32 tokens equal to a ``serve_step`` loop's
+     (whisper with ``enc_out``), a profiled decode step and prefill (the
+     recurrent families' at S = 128); the
+     CUDA-core forward at [32, 2624, 96] bf16 against its plain version,
+     timed with its bound and SDPA; ``launch/serve.run("whisper_base")``'s
+     plan on the card equal to the CPU port's bit for bit.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -2117,12 +2138,15 @@ DEEPSEEK_LAYERS = 1                  # of 60: one layer is ~5.0 B params
 
 
 def cast_params(params: dict, dtype) -> dict:
-    """``params`` in ``dtype``, the MoE router kept float32 (as the
-    reference's init and the port's draw it)."""
+    """``params`` in ``dtype``, the leaves the reference keeps float32 (the
+    MoE router, Mamba2's A, dt bias and skip) kept float32, as the
+    reference's init and the port's draw them."""
+    from repro_torch.models.common import FLOAT32_LEAVES
+
     def conv(tree, key=""):
         if isinstance(tree, dict):
             return {k: conv(v, k) for k, v in tree.items()}
-        return tree if key == "router" else tree.to(dtype)
+        return tree if key in FLOAT32_LEAVES else tree.to(dtype)
     return conv(params)
 
 
@@ -2453,16 +2477,304 @@ def moe_mla_phase(dev, smi: str) -> dict:
     return out
 
 
+# -- phase 18: xLSTM, Zamba2, Whisper and phi-3-vision at full width ---------
+
+PHI3V_SHAPE = (32, 576 + 2048, 96)   # [B*H, P + S, hd] of phi-3-vision's
+#                                      prefill at B = 1
+GEN = 32                  # generated tokens, and the prompt length decoded
+DECODE_TOL = (0.11, 0.05)  # the reference's decode == prefill (atol, rtol)
+# (arch, float32 card-vs-CPU check (B, S), bf16 prefill (B, S)); phi-3-
+# vision's float32 check is flash against xla on the card at S = 512
+FAMILIES = (("xlstm_125m", (2, 64), (4, 1024)),
+            ("zamba2_2_7b", (1, 32), (1, 512)),
+            ("whisper_base", (2, 64), (4, 448)),
+            ("phi3_vision_4_2b", None, (1, 2048)))
+# the recurrent families launch kernels per token (an xlstm-125m prefill
+# at S = 1024 is ~250 k launches): their prefill is profiled at this length
+RECURRENT_PROFILE_S = 128
+
+
+def family_batch(cfg, rng, b: int, s: int) -> dict:
+    """numpy tokens [b, s], plus standard-normal frames [b, num_frames, D]
+    (encdec) or patches [b, num_patches, D] (vlm), float32."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+    stub = {"encdec": ("frames", cfg.num_frames),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if stub:
+        out[stub[0]] = rng.standard_normal(
+            (b, stub[1], cfg.d_model), dtype=np.float32)
+    return out
+
+
+def encoder_extra(cfg, params, batch, dev) -> dict:
+    """Whisper's ``enc_out`` for the decode steps (the encoding of the
+    batch's frames on ``dev``), else nothing."""
+    import torch
+    from repro_torch.models import encdec
+    if cfg.family != "encdec":
+        return {}
+    with torch.no_grad():
+        return {"enc_out": encdec.encode(cfg, params, torch.as_tensor(
+            batch["frames"], device=dev), remat=False)}
+
+
+def card_vs_cpu_f32(name, cfg32, params, dev, b, s, rng) -> float:
+    """The float32 (TF32 off) prefill's last logits and 4 ``serve_step``s
+    (logits and every state leaf after each) on the card against the
+    port's CPU run on the same weights (``params`` on the CPU), at
+    atol = rtol = 2e-4; no flash launch on the card.  Returns the max
+    |diff|."""
+    import torch
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import items, tree_map
+    dparams = tree_map(lambda x: x.to(dev), params)
+    batch = family_batch(cfg32, rng, b, s)
+    flash.reset_launch_count()
+    got = steps.make_prefill_step(cfg32, device=dev)(dparams, batch)[:, -1]
+    torch.cuda.synchronize()
+    if flash_variant_counts(flash):
+        raise AssertionError(f"{name} float32 prefill launched flash: "
+                             f"{flash_variant_counts(flash)}")
+    want = steps.make_prefill_step(cfg32, device="cpu")(params, batch)[:, -1]
+    err = max_err_within(got.cpu(), want, 2e-4,
+                         f"{name} float32 prefill card vs CPU")
+    extra = (encoder_extra(cfg32, dparams, batch, dev),
+             encoder_extra(cfg32, params, batch, "cpu"))
+    caches = (M.init_cache(cfg32, b, 8, device=dev),
+              M.init_cache(cfg32, b, 8, device="cpu"))
+    step = (steps.make_serve_step(cfg32, device=dev),
+            steps.make_serve_step(cfg32, device="cpu"))
+    for i in range(4):
+        tok = batch["tokens"][:, i:i + 1]
+        a, _ = step[0](dparams, caches[0], {"tokens": tok, "pos": i,
+                                            **extra[0]})
+        c, _ = step[1](params, caches[1], {"tokens": tok, "pos": i,
+                                           **extra[1]})
+        err = max(err, max_err_within(a.cpu(), c, 2e-4,
+                                      f"{name} float32 decode step {i}"))
+        cpu_state = dict(items(caches[1]))
+        for key, leaf in items(caches[0]):
+            err = max(err, max_err_within(leaf.cpu(), cpu_state[key], 2e-4,
+                                          f"{name} {key} after step {i}"))
+    del dparams, caches
+    log(f"{name} float32 (TF32 off) B={b} S={s}: card vs CPU port, last "
+        f"prefill logits, 4 decode steps and every state leaf after each: "
+        f"max |diff| {err:.3e} (tolerance 2e-4); no flash launch")
+    return err
+
+
+def serve_family(name, cfg, params, dev, smi, b, s, rng,
+                 want_flash: dict) -> dict:
+    """The bf16 serving path of one family: the prefill with every launch
+    counter set to 0 just before and read just after (flash launches ==
+    ``want_flash``, finite logits, peak memory), timed; decode == prefill
+    over the first GEN tokens (a ``serve_step`` loop against a prefill of
+    those tokens, text only for vlm) at the reference's tolerance; the
+    loop's GEN greedy tokens == ``DecodeEngine``'s from the same prompts;
+    a profile of one decode step."""
+    import torch
+    from repro_torch.kernels import flash, minplus
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DecodeEngine
+    step = steps.make_prefill_step(cfg, device=dev)
+    batch = family_batch(cfg, rng, b, s)
+    step(params, batch)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (flash, minplus):
+        mod.reset_launch_count()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != want_flash or minplus.launch_count():
+        raise AssertionError(f"{name} bf16 prefill: flash launches {counts} "
+                             f"(expected {want_flash}), min-plus "
+                             f"{minplus.launch_count()}")
+    if logits.shape != (b, s, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} bf16 logits not finite or misshapen")
+    del logits
+    ms = time_prefill(step, params, batch, n=3)
+    out = {"prefill_ms": statistics.median(ms), "peak_gib": peak / 2**30,
+           "launches": counts, "tokens": b * s}
+    stub = {"frames": f"{cfg.num_frames:,} frames + ",
+            "patches": f"{cfg.num_patches} patches + "}
+    what = "".join(v for k, v in stub.items() if k in batch)
+    log(f"{name} bf16 prefill B={b} {what}S={s}: flash launches {counts or 0}"
+        f", logits finite; median {out['prefill_ms']:.2f} ms over 3 (min "
+        f"{min(ms):.2f}, max {max(ms):.2f}), {b * s / out['prefill_ms'] * 1e3:.0f}"
+        f" tokens/s; peak device memory {out['peak_gib']:.2f} GiB on {smi}")
+
+    # decode == prefill over the first GEN tokens, then GEN greedy steps
+    short = {k: (v[:, :GEN] if k == "tokens" else v) for k, v in batch.items()
+             if k != "patches"}
+    want = steps.make_prefill_step(cfg, device=dev)(params, short)
+    extra = encoder_extra(cfg, params, batch, dev)
+    serve = steps.make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, b, 2 * GEN + 8, device=dev)
+    toks = torch.as_tensor(short["tokens"], device=dev)
+    err = 0.0
+    for i in range(GEN):
+        lg, cache = serve(params, cache, {"tokens": toks[:, i:i + 1],
+                                          "pos": i, **extra})
+        err = max(err, max_err_within(lg, want[:, i], DECODE_TOL[0],
+                                      f"{name} decode vs prefill at {i}",
+                                      rtol=DECODE_TOL[1]))
+    loop = []
+    for j in range(GEN):
+        tok = torch.argmax(lg, -1)[:, None]
+        loop.append(tok[:, 0])
+        lg, cache = serve(params, cache, {"tokens": tok, "pos": GEN + j,
+                                          **extra})
+    loop = torch.stack(loop, 1).cpu().numpy()
+    engine = DecodeEngine(cfg, params, max_len=2 * GEN + 8, device=dev)
+    res = engine.generate(short["tokens"], GEN, extra_batch=extra)
+    if not np.array_equal(res.tokens, loop):
+        raise AssertionError(f"{name}: DecodeEngine tokens != the "
+                             f"serve_step loop's")
+    out.update(decode_err=err, decode_tok_s=res.tokens_per_s,
+               decode_ms_per_step=res.decode_s / GEN * 1e3)
+    log(f"{name} bf16 decode: {GEN} serve_steps vs the prefill's logits max "
+        f"|diff| {err:.3e} (atol {DECODE_TOL[0]}, rtol {DECODE_TOL[1]}); "
+        f"DecodeEngine {b} prompts x {GEN} tokens, {GEN} generated == the "
+        f"loop's: {res.tokens_per_s:.1f} tok/s ({out['decode_ms_per_step']:.2f}"
+        f" ms a step; prompt {res.prefill_s:.2f} s) on {smi}")
+    if profiler_works():
+        tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        profile_device(f"one {name} decode step (B={b}, bf16)",
+                       lambda: serve(params, cache, {"tokens": tok,
+                                                     "pos": 2 * GEN,
+                                                     **extra}), top=8)
+    return out
+
+
+def families_phase(dev, smi: str) -> dict:
+    """Phase 18; returns the flash launches of each path, the min-plus
+    launches of whisper's served plan, phi-3-vision's forward kernel
+    check and times at PHI3V_SHAPE, and each family's serving figures."""
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash, minplus
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(18)
+    out = {"launches": {}, "serving": {}}
+    for arch, check, (b, s) in FAMILIES:
+        full = registry.config(arch)
+        name = full.name
+        cfg32 = dataclasses.replace(full, dtype=torch.float32,
+                                    attn_impl="flash")
+        t0 = time.perf_counter()
+        # the CPU copy serves the card-vs-CPU check; phi-3-vision's is
+        # drawn straight onto the card
+        params = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                               device="cpu" if check else dev)
+        log(f"{name} at full width ({full.num_layers} layers, d "
+            f"{full.d_model}): {M.param_count(params):,} params (random, "
+            f"seed 0), initialised in {time.perf_counter() - t0:.1f} s")
+        if check:
+            card_vs_cpu_f32(name, cfg32, params, dev, *check, rng)
+            params = tree_map(lambda x: x.to(dev),
+                              cast_params(params, torch.bfloat16))
+        else:
+            bh, s_all, d = PHI3V_SHAPE
+            if (full.num_heads, full.num_patches + s, full.head_dim) != \
+                    (bh, s_all, d):
+                raise AssertionError(f"{name} config: {full}")
+            toks = family_batch(cfg32, rng, 1, 512)
+            flash.reset_launch_count()
+            got = steps.make_prefill_step(cfg32, device=dev)(params, toks)
+            torch.cuda.synchronize()
+            counts = flash_variant_counts(flash)
+            want = steps.make_prefill_step(dataclasses.replace(
+                cfg32, attn_impl="xla"), device=dev)(params, toks)
+            if counts != {"flash_fwd_lse/simt": full.num_layers}:
+                raise AssertionError(f"{name} float32 prefill: flash "
+                                     f"launches {counts}")
+            err = max_err_within(got, want, 3e-4, f"{name} float32 prefill "
+                                 f"flash vs xla")
+            out["launches"][f"{name} float32 prefill"] = counts
+            log(f"{name} float32 prefill B=1, {full.num_patches} patches + 512 "
+                f"tokens (TF32 off): flash vs xla logits max |diff| {err:.3e} (tolerance "
+                f"3e-4); launches {counts}")
+            del got, want
+            params = cast_params(params, torch.bfloat16)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(full, attn_impl="flash")
+        want_flash = ({"flash_fwd_lse/simt": full.num_layers}
+                      if full.family == "vlm" else {})
+        res = serve_family(name, cfg, params, dev, smi, b, s, rng,
+                           want_flash)
+        out["serving"][name] = res
+        out["launches"][f"{name} bf16 prefill"] = res["launches"]
+        if full.family == "vlm":
+            out["phi3v"] = hold_and_time_fwd(rng, dev, full.num_heads,
+                                             *PHI3V_SHAPE, PHI3V_SHAPE[2],
+                                             smi)
+            n = full.num_layers
+            log(f"  {name} prefill: {n} CUDA-core flash launches, "
+                f"{n * out['phi3v']['ms']:.2f} ms of the "
+                f"{res['prefill_ms']:.2f} ms by the kernel's time per call")
+        if profiler_works():
+            ps = RECURRENT_PROFILE_S if full.sub_quadratic else s
+            batch = family_batch(cfg, rng, b, ps)
+            step = steps.make_prefill_step(cfg, device=dev)
+            profile_device(f"one {name} prefill (B={b}, S={ps}, bf16)",
+                           lambda: step(params, batch), top=8)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s in phase 18")
+
+    # launch/serve.py's encdec branch on the card: the routed plan through
+    # the min-plus kernel, equal to the CPU port's bit for bit
+    for mod in (minplus, flash):
+        mod.reset_launch_count()
+    _, plans, sres = serve.run("whisper_base", requests=4, gen=16,
+                               device=dev, verbose=False)
+    torch.cuda.synchronize()
+    n_minplus = minplus.launch_count()
+    out["minplus"] = {e: minplus.launch_count(e) for e in minplus.ENTRIES}
+    if n_minplus == 0 or flash_variant_counts(flash):
+        raise AssertionError(f"serve.run('whisper_base'): min-plus "
+                             f"{n_minplus}, flash "
+                             f"{flash_variant_counts(flash)}")
+    _, cpu_plans, _ = serve.run("whisper_base", requests=4, gen=1,
+                                device="cpu", verbose=False)
+    for a, c in zip(plans, cpu_plans, strict=True):
+        if (a.priority, a.bound_s, a.nodes_used) != \
+                (c.priority, c.bound_s, c.nodes_used):
+            raise AssertionError(f"whisper serve plan card vs CPU: {a} != "
+                                 f"{c}")
+    log(f"serve.run('whisper_base') on the card: {len(plans)} placements == "
+        f"CPU port's bit for bit, {n_minplus} min-plus launches, no flash, "
+        f"{sres.tokens_per_s:.1f} tok/s (smoke config, encoder output of "
+        f"zero frames)")
+    return out
+
+
 def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                catalog: dict, wide: dict, stack: dict, oracles: dict,
-               moe_mla: dict) -> list[dict]:
+               moe_mla: dict, families: dict) -> list[dict]:
     """The kernels line.  The kernels on this run's newest paths report
     those paths' launches (phase 16's SA, exact and bounds solves for the
     closure kernel, the catalog's V = 48 solves for the product, the
-    olmoe-1b-7b and deepseek-v2 prefills of phase 17 for the forward);
-    every path's count stands in "launches_by_path".  "timed_at" names
-    the shape of the row's times; "also_timed" keeps the row's times at
-    the shapes of earlier paths."""
+    olmoe-1b-7b prefills of phase 17 for the tensor-core forward and
+    phi-3-vision's prefills of phase 18 for the CUDA-core one); every
+    path's count stands in "launches_by_path".  "timed_at" names the shape
+    of the row's times; "also_timed" keeps the row's times at the shapes
+    of earlier paths."""
     from repro_torch.kernels import minplus
 
     for row, entry in zip(minplus_rows, minplus.ENTRIES):
@@ -2471,16 +2783,16 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                                    "catalog (phase 13)": catalog[entry],
                                    "serving stack (phase 15)": stack[entry],
                                    "SA, exact and bounds (phase 16)":
-                                   oracles["launches"][entry]}
+                                   oracles["launches"][entry],
+                                   "serve.run('whisper_base') (phase 18)":
+                                   families["minplus"][entry]}
         row["launches"] = oracles["launches"][entry] or catalog[entry]
         row["timed_at"] = "[62,24,24] f32"
-    runs = moe_mla["launches"]
     for row in flash_rows:
         row["timed_at"] = f"[{','.join(map(str, PREFILL_SHAPE))}] bf16"
         if row["name"] not in ("flash_fwd_lse", "flash_fwd_lse_sm90"):
             continue
         variant = "simt" if row["name"] == "flash_fwd_lse" else "sm90"
-        new = moe_mla["mla" if variant == "simt" else "olmoe"]
         earlier = ("smollm-135m float32 prefill (phase 6)",
                    "minicpm-2b float32 prefill (phase 14)", wide["f32"]) \
             if variant == "simt" else \
@@ -2488,24 +2800,33 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
              "minicpm-2b bf16 prefill (phase 14)", wide["bf16"])
         row["launches_by_path"] = {earlier[0]: row["launches"],
                                    earlier[1]: earlier[2]}
-        for what, counts in runs.items():
-            n = counts.get(f"flash_fwd_lse/{variant}", 0)
-            if n:
-                row["launches_by_path"][f"{what} (phase 17)"] = n
-        also = {row["timed_at"]: {k: row[k] for k in (
-            "ms", "plain_ms", "bound_ms", "library_ms")}}
+        row["also_timed"] = {}
         if variant == "sm90":
-            also[f"[{','.join(map(str, MINICPM_SHAPE))}] bf16"] = {
-                "ms": wide["ms"], "plain_ms": wide["plain_ms"],
-                "bound_ms": wide["bound"][0], "library_ms": wide["sdpa_ms"]}
-        row.update(launches=sum(counts.get(f"flash_fwd_lse/{variant}", 0)
-                                for counts in runs.values()),
-                   max_abs_err=max(row["max_abs_err"], new["err"],
-                                   wide["err"] if variant == "sm90" else 0),
-                   ms=new["ms"], plain_ms=new["plain_ms"],
-                   bound_ms=new["bound"][0], bound_by=new["bound"][1],
-                   library_ms=new["sdpa_ms"], timed_at=new["shape"],
-                   also_timed=also)
+            row["also_timed"][f"[{','.join(map(str, MINICPM_SHAPE))}] bf16"] \
+                = {"ms": wide["ms"], "plain_ms": wide["plain_ms"],
+                   "bound_ms": wide["bound"][0],
+                   "library_ms": wide["sdpa_ms"]}
+            row["max_abs_err"] = max(row["max_abs_err"], wide["err"])
+        # each newer path's launches; the newest path that launched this
+        # kernel gives the row its launches and its times
+        for phase, runs, held in (
+                (17, moe_mla["launches"],
+                 moe_mla["mla" if variant == "simt" else "olmoe"]),
+                (18, families["launches"], families.get("phi3v"))):
+            mine = {what: counts.get(f"flash_fwd_lse/{variant}", 0)
+                    for what, counts in runs.items()}
+            mine = {what: n for what, n in mine.items() if n}
+            for what, n in mine.items():
+                row["launches_by_path"][f"{what} (phase {phase})"] = n
+            if not mine or held is None or held["variant"] != variant:
+                continue
+            row["also_timed"][row["timed_at"]] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
+            row.update(launches=sum(mine.values()),
+                       max_abs_err=max(row["max_abs_err"], held["err"]),
+                       ms=held["ms"], plain_ms=held["plain_ms"],
+                       bound_ms=held["bound"][0], bound_by=held["bound"][1],
+                       library_ms=held["sdpa_ms"], timed_at=held["shape"])
     return minplus_rows + flash_rows
 
 
@@ -2560,10 +2881,13 @@ def main() -> int:
     t17 = time.perf_counter()
     moe_mla = moe_mla_phase(dev, smi)
     log(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    families = families_phase(dev, smi)
+    log(f"phase 18 took {time.perf_counter() - t18:.1f} s")
 
     rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
-                      wide, stack, oracles, moe_mla)
-    log(f"phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+                      wide, stack, oracles, moe_mla, families)
+    log(f"phases 1-18 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

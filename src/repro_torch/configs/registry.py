@@ -2,9 +2,8 @@
 evaluation models.
 
 Counterpart of ``repro.configs.registry``.  Every architecture has its
-``config()``, ``smoke_config()`` and ``cost_profile()``; the models of the
-ssm, hybrid, encdec and vlm families are not ported yet
-(``models.model.init_params`` raises for them).
+``config()``, ``smoke_config()`` and ``cost_profile()``, and every LM
+architecture's model runs through ``models.model``.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from .core.jobs import JobBatch
 from .core.network import ComputeNetwork
 from .core.plan import Plan
 from .device import resolve_device
+from .models.common import FLOAT32_LEAVES
 from .pytree import tree_map
 
 
@@ -44,15 +45,16 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, *,
                          device: str | torch.device) -> dict:
     """The port's LM params from the reference's param pytree as numpy.
 
-    ``tree`` is ``{"blocks": {"attn", "ln1", "ln2", "mlp" | "moe"}
-    stacked [L, ...], "embed": {"tok"[, "head"]}, "ln_f"}`` with numpy
-    leaves: "attn" holds {wq, wk, wv, wo}, or for MLA {w_kv_a, kv_a_norm,
-    w_uk, w_uv, wo, and w_q_a, q_a_norm, w_q_b or w_q}; "moe" holds
-    {router, w_gate, w_up, w_down[, shared]}.  bfloat16 weights cross as
-    float32 arrays that hold bfloat16 values (numpy has no bfloat16
-    without ``ml_dtypes``); every leaf is cast to ``cfg.dtype``, which is
-    lossless for those, except the MoE router, which stays float32 as in
-    the reference.
+    ``tree`` is the reference's ``init_params`` tree with numpy leaves, of
+    any family: ``{"blocks", "embed", "ln_f"}`` for dense, moe, vlm and
+    ssm (xLSTM blocks hold {"m", "s", "ln"}), ``{"mamba", "shared",
+    "embed", "ln_f"}`` for hybrid, ``{"enc", "dec", "embed", "ln_enc",
+    "ln_dec"}`` for encdec; blocks stacked [L, ...].  bfloat16 weights
+    cross as float32 arrays that hold bfloat16 values (numpy has no
+    bfloat16 without ``ml_dtypes``); every leaf is cast to ``cfg.dtype``,
+    which is lossless for those, except the leaves the reference keeps
+    float32 (``models.common.FLOAT32_LEAVES``: the MoE router, Mamba2's
+    ``a_log``, ``dt_bias`` and ``d_skip``).
     """
     dev = resolve_device(device)
 
@@ -61,7 +63,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, *,
             return {k: convert(v, k) for k, v in x.items()}
         return torch.from_numpy(np.array(x, np.float32)).to(
             device=dev,
-            dtype=torch.float32 if key == "router" else cfg.dtype)
+            dtype=torch.float32 if key in FLOAT32_LEAVES else cfg.dtype)
 
     return convert(tree)
 

@@ -6,7 +6,8 @@
 Counterpart of ``repro.launch.serve``: the routed scheduler places the
 requests on the default cluster (the plan's min-plus closures run on the
 hand-written kernel on the card), then a :class:`DecodeEngine` decodes
-them with the arch's smoke config and random weights from seed 0.
+them with the arch's smoke config and random weights from seed 0 (an
+encdec arch decodes against the encoding of zero frames).
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
 cpu`` runs the kernels' plain versions on the CPU.
 """
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core import network as N
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models import model as M
 from repro_torch.serving.engine import DecodeEngine, GenerationResult
 from repro_torch.serving.scheduler import Placement, Request, RoutedScheduler
@@ -52,14 +54,18 @@ def run(arch: str = "smollm_135m", requests: int = 4, gen: int = 16,
               f"makespan bound {sched.last_plan.bound()*1e3:.2f} ms")
 
     cfg = registry.smoke_config(arch)
-    # families other than dense (the reference's encdec branch among them)
-    # raise NotImplementedError here
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
     engine = DecodeEngine(cfg, params, max_len=prompt_len + gen + 8,
                           device=dev)
     prompts = np.tile(np.arange(prompt_len, dtype=np.int32)[None],
                       (requests, 1))
-    res = engine.generate(prompts, gen_len=gen)
+    extra = {}
+    if cfg.family == "encdec":
+        frames = torch.zeros((requests, cfg.num_frames, cfg.d_model),
+                             dtype=cfg.dtype, device=dev)
+        with torch.no_grad():
+            extra["enc_out"] = encdec.encode(cfg, params, frames, remat=False)
+    res = engine.generate(prompts, gen_len=gen, extra_batch=extra)
     if verbose:
         print(f"[serve] {requests} requests x {gen} tokens: "
               f"{res.tokens_per_s:.1f} tok/s (decode {res.decode_s:.2f}s)")

@@ -3,7 +3,8 @@
 Counterpart of ``repro.launch.steps``: ``default_optimizer``,
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``.  Each
 builder resolves its device once (``"cuda"`` by default; raises without
-a card) and moves the batch's tokens (and labels) there.
+a card) and moves the batch's arrays there: tokens, and labels, frames,
+patches and enc_out where the batch has them.
 """
 from __future__ import annotations
 
@@ -16,11 +17,12 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.pytree import leaves, unflatten
 
 
+ARRAY_KEYS = ("tokens", "labels", "frames", "patches", "enc_out")
+
+
 def _on(dev: torch.device, batch: dict) -> dict:
-    out = {**batch, "tokens": torch.as_tensor(batch["tokens"], device=dev)}
-    if "labels" in batch:
-        out["labels"] = torch.as_tensor(batch["labels"], device=dev)
-    return out
+    return {k: torch.as_tensor(v, device=dev) if k in ARRAY_KEYS else v
+            for k, v in batch.items()}
 
 
 def default_optimizer(cfg) -> AdamW:
@@ -49,7 +51,10 @@ def make_train_step(cfg, opt: AdamW | None = None, *,
     def train_step(params, opt_state, batch):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss = M.loss_fn(cfg, unflatten(params, flat), _on(dev, batch))
-        grads = torch.autograd.grad(loss, flat)
+        # xLSTM blocks carry leaves that no layer reads (each branch's own
+        # norm); their gradient is 0, as the reference's
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
         params, opt_state, _ = opt.apply(unflatten(params, flat),
                                          unflatten(params, list(grads)),
                                          opt_state)

@@ -1,6 +1,7 @@
 """Training driver: fault-tolerant loop with checkpoint/restart.
 
-Counterpart of ``repro.launch.train`` for the dense family: deterministic
+Counterpart of ``repro.launch.train`` for every family (the encdec and
+vlm stubs take zero frames and zero patches, as there): deterministic
 data, the port's train step, atomic checkpoints, a straggler monitor, and
 resume from the newest checkpoint that repeats an uninterrupted run.  Like
 the reference it trains with the registry config's ``attn_impl``.  Runs on
@@ -80,8 +81,14 @@ def train(arch: str, *, preset: str = "smoke", steps: int = 100,
     for step in range(start, steps):
         injector.check(step)
         t0 = time.time()
-        loss, params, opt_state = step_fn(params, opt_state,
-                                          data.batch_at(step))
+        b = data.batch_at(step)
+        if cfg.family == "encdec":
+            b["frames"] = torch.zeros((batch, cfg.num_frames, cfg.d_model),
+                                      dtype=cfg.dtype, device=dev)
+        if cfg.family == "vlm":
+            b["patches"] = torch.zeros((batch, cfg.num_patches, cfg.d_model),
+                                       dtype=cfg.dtype, device=dev)
+        loss, params, opt_state = step_fn(params, opt_state, b)
         loss = float(loss)
         monitor.record(time.time() - t0)
         losses.append(loss)

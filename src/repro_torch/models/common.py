@@ -10,15 +10,18 @@ from the reference:
     ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ w``.
 
 ``remat_wrap`` is ``torch.utils.checkpoint`` for the ``"full"`` policy.
-``maybe_shard`` and ``cross_attention`` have no counterpart yet (sharding
-and the encoder-decoder family come in later slices), nor has the
-``shard_map`` branch of ``_flash_bshd``: on one card the kernel always
-runs on the whole ``[B*H, S, hd]`` block.  Nothing on the training path
-writes in place into a tensor that autograd saved; ``write_kv``'s
+``maybe_shard`` has no counterpart (sharding comes in a later slice), nor
+has the ``shard_map`` branch of ``_flash_bshd``: on one card the kernel
+always runs on the whole ``[B*H, S, hd]`` block.  Nothing on the training
+path writes in place into a tensor that autograd saved; ``write_kv``'s
 in-place cache write serves decode only.
+
+Stacked ``[L, ...]`` param trees are drawn with :func:`stack_layers` and
+read a layer at a time through :func:`layer` (a view, no copy).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,8 +29,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.pytree import tree_map
 
 NEG_INF = -1e30  # the reference's masked-score value
+# leaves the reference keeps float32 whatever cfg.dtype is: the MoE router
+# and Mamba2's per-head A, dt bias and skip
+FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
+# jax.nn.gelu's default is the tanh approximation
+gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
 
 def remat_wrap(fn, cfg):
@@ -46,6 +55,33 @@ def remat_wrap(fn, cfg):
                                                  use_reentrant=False)
 
     return wrapped
+
+
+def to_device(tree, device: torch.device):
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def stack_layers(n: int, draw) -> dict:
+    """``n`` draws of a block's param tree stacked along a leading layer
+    axis: the stacked tensors are allocated on the first draw's device and
+    each draw is copied in as it comes, so the device holds the stack and
+    one block, and the host one weight, at a time."""
+    first = draw()
+    out = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                         dtype=x.dtype, device=x.device),
+                   first)
+    for i in range(n):
+        tree = first if i == 0 else draw()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        first = tree = None
+    return out
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s view of a stacked ``[L, ...]`` tree (no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def truncated_normal(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -116,7 +152,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / sliding-window)
+# Attention (GQA, causal / sliding-window / cross)
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -131,7 +167,8 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def _sdpa(q, k, v, mask, *, grouped: bool = False) -> torch.Tensor:
-    """q: [B,S,H,hd]; k/v: [B,T,Hkv,hd]; mask: [B?,1,S,T] bool.
+    """q: [B,S,H,hd]; k/v: [B,T,Hkv,hd]; mask: [B?,1,S,T] bool, or None
+    for no mask.
 
     ``grouped=True`` contracts GQA with a grouped einsum instead of
     repeating K/V per head; the function is the same.
@@ -143,7 +180,8 @@ def _sdpa(q, k, v, mask, *, grouped: bool = False) -> torch.Tensor:
         qg = q.reshape(b, s, hkv, rep, hd)
         scores = torch.einsum("bsgrd,btgd->bgrst", qg, k).float()
         scores = scores.reshape(b, h, s, -1) / math.sqrt(hd)
-        scores = torch.where(mask, scores, NEG_INF)
+        if mask is not None:
+            scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         pg = probs.reshape(b, hkv, rep, s, -1)
         out = torch.einsum("bgrst,btgd->bsgrd", pg, v)
@@ -151,8 +189,9 @@ def _sdpa(q, k, v, mask, *, grouped: bool = False) -> torch.Tensor:
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float()
-    scores = torch.where(mask, scores / math.sqrt(hd), NEG_INF)
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(hd)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
@@ -228,7 +267,7 @@ def write_kv(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 def attention(params, x, positions, *, n_heads, n_kv, head_dim,
               rope_theta=1e4, window=0, kv_cache=None, cache_pos=None,
-              chunk_q=0, attn_impl="xla", grouped=False):
+              use_rope=True, chunk_q=0, attn_impl="xla", grouped=False):
     """Self-attention.  With ``kv_cache`` = {'k','v'} [B, T, n_kv, hd] it
     runs a decode step: writes K/V at ``cache_pos`` (in place, see
     :func:`write_kv`) and attends over positions <= cache_pos + s - 1."""
@@ -236,8 +275,9 @@ def attention(params, x, positions, *, n_heads, n_kv, head_dim,
     q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(b, s, n_kv, head_dim)
     v = (x @ params["wv"]).reshape(b, s, n_kv, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
     if kv_cache is None:
         if attn_impl == "flash" and window == 0 and s >= 128:
             out = _flash_bshd(q, k, v)
@@ -260,23 +300,40 @@ def attention(params, x, positions, *, n_heads, n_kv, head_dim,
     return out, new_cache
 
 
+def init_cross_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                         head_dim: int, dtype: torch.dtype) -> dict:
+    return init_attention(gen, d_model, n_heads, n_heads, head_dim, dtype)
+
+
+def cross_attention(params, x, enc, *, n_heads, head_dim) -> torch.Tensor:
+    """x: [B, S, D] attends, unmasked and without RoPE, to enc: [B, T, D]."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (enc @ params["wk"]).reshape(b, t, n_heads, head_dim)
+    v = (enc @ params["wv"]).reshape(b, t, n_heads, head_dim)
+    out = _sdpa(q, k, v, None)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
-             dtype: torch.dtype) -> dict:
-    """SiLU-gated MLP (the reference's ``gated=True``, the only form the
-    dense family uses)."""
-    return {"w_up": dense_init(gen, d_model, d_ff, dtype),
-            "w_down": dense_init(gen, d_ff, d_model, dtype,
-                                 scale=1.0 / math.sqrt(d_ff)),
-            "w_gate": dense_init(gen, d_model, d_ff, dtype)}
+             dtype: torch.dtype, *, gated: bool = True) -> dict:
+    p = {"w_up": dense_init(gen, d_model, d_ff, dtype),
+         "w_down": dense_init(gen, d_ff, d_model, dtype,
+                              scale=1.0 / math.sqrt(d_ff))}
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype)
+    return p
 
 
-def mlp(params, x) -> torch.Tensor:
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
-        @ params["w_down"]
+def mlp(params, x, *, gated: bool = True, act=F.silu) -> torch.Tensor:
+    up = x @ params["w_up"]
+    up = act(x @ params["w_gate"]) * up if gated else act(up)
+    return up @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,6 @@ import math
 
 import torch
 
-from ..pytree import tree_map
 from . import common as cm
 
 
@@ -36,7 +35,8 @@ def init_mla(gen: torch.Generator, cfg, device: torch.device) -> dict:
 
     p = {
         "w_kv_a": put(cm.dense_init(gen, d, r + qr, cfg.dtype)),
-        "kv_a_norm": tree_map(put, cm.init_norm(r, "rmsnorm", cfg.dtype)),
+        "kv_a_norm": cm.to_device(cm.init_norm(r, "rmsnorm", cfg.dtype),
+                                  device),
         "w_uk": put(cm.truncated_normal(gen, (h, r, qk), cfg.dtype,
                                         1 / math.sqrt(r))),
         "w_uv": put(cm.truncated_normal(gen, (h, r, vd), cfg.dtype,
@@ -45,8 +45,9 @@ def init_mla(gen: torch.Generator, cfg, device: torch.device) -> dict:
     }
     if cfg.q_lora_rank > 0:
         p["w_q_a"] = put(cm.dense_init(gen, d, cfg.q_lora_rank, cfg.dtype))
-        p["q_a_norm"] = tree_map(put, cm.init_norm(cfg.q_lora_rank,
-                                                   "rmsnorm", cfg.dtype))
+        p["q_a_norm"] = cm.to_device(cm.init_norm(cfg.q_lora_rank,
+                                                  "rmsnorm", cfg.dtype),
+                                      device)
         p["w_q_b"] = put(cm.dense_init(gen, cfg.q_lora_rank, h * (qk + qr),
                                        cfg.dtype))
     else:

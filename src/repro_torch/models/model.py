@@ -1,18 +1,20 @@
 """Unified model API: one config dataclass + family dispatch.
 
-Counterpart of ``repro.models.model`` for the dense and moe families
-(dense, MoE and MLA blocks; the serving and training paths):
+Counterpart of ``repro.models.model`` for all six families: dense and
+moe (dense, MoE and MLA blocks), vlm (the dense backbone behind a patch
+prefix), ssm (xLSTM), hybrid (Zamba2) and encdec (Whisper):
 
     init_params(cfg, generator, device=)          -> params dict
     prefill_logits(cfg, params, batch)            -> [B, S, vocab] float32
     loss_fn(cfg, params, batch)                   -> scalar float32 loss
-    init_cache(cfg, batch, max_len, device=)      -> KV cache dict
+    init_cache(cfg, batch, max_len, device=)      -> cache / state dict
     serve_step(cfg, params, cache, batch)         -> (logits [B, vocab], cache)
 
-``batch`` is a dict: 'tokens' [B, S] (a tensor on the params' device),
-plus 'labels' [B, S] for the loss and the int 'pos' during decode.  The
-other families (ssm, hybrid, encdec, vlm) raise ``NotImplementedError``
-naming their ROADMAP item.
+``batch`` is a dict of tensors on the params' device: 'tokens' [B, S],
+plus 'labels' [B, S] for the loss, 'frames' [B, T, D] for the audio stub
+(encdec), 'patches' [B, P, D] for the vision stub (vlm), and during
+decode the int 'pos' and, for encdec, 'enc_out' [B, T, D].  An unknown
+family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ import torch
 
 from ..device import resolve_device
 from . import common as cm
-from . import transformer
+from . import encdec, hybrid, ssm, transformer
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,26 +107,39 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 12b); ported: {PORTED_FAMILIES}")
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random params drawn from ``generator`` (a CPU generator; the same
     seed gives the same weights on every device), placed on ``device``."""
     dev = resolve_device(device)
-    _check_family(cfg)
-    return transformer.init(generator, cfg, dev)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer.init(generator, cfg, dev)
+    if cfg.family == "ssm":
+        return ssm.xlstm_init(generator, cfg, dev)
+    if cfg.family == "hybrid":
+        return hybrid.init(generator, cfg, dev)
+    if cfg.family == "encdec":
+        return encdec.init(generator, cfg, dev)
+    raise ValueError(cfg.family)
 
 
 def prefill_logits(cfg: ModelConfig, params: dict, batch: dict
                    ) -> torch.Tensor:
-    _check_family(cfg)
-    return transformer.forward(cfg, params, batch["tokens"], remat=cfg.remat)
+    tokens = batch["tokens"]
+    if cfg.family in ("dense", "moe"):
+        return transformer.forward(cfg, params, tokens, remat=cfg.remat)
+    if cfg.family == "vlm":
+        return transformer.forward(cfg, params, tokens,
+                                   extra_embeds=batch.get("patches"),
+                                   remat=cfg.remat)
+    if cfg.family == "ssm":
+        return ssm.xlstm_forward(cfg, params, tokens, remat=cfg.remat)
+    if cfg.family == "hybrid":
+        return hybrid.forward(cfg, params, tokens, remat=cfg.remat)
+    if cfg.family == "encdec":
+        return encdec.forward(cfg, params, batch["frames"], tokens,
+                              remat=cfg.remat)
+    raise ValueError(cfg.family)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -142,16 +157,32 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
-    _check_family(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dev)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer.init_cache(cfg, batch, max_len, dev)
+    if cfg.family == "ssm":
+        return ssm.xlstm_state(cfg, batch, dev)
+    if cfg.family == "hybrid":
+        return hybrid.init_cache(cfg, batch, max_len, dev)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, dev)
+    raise ValueError(cfg.family)
 
 
 def serve_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
-    """One decode step: batch = {'tokens': [B, 1], 'pos': int}.  The cache
-    is updated in place and returned."""
-    _check_family(cfg)
-    return transformer.decode_step(cfg, params, cache, batch["tokens"],
-                                   int(batch["pos"]))
+    """One decode step: batch = {'tokens': [B, 1], 'pos': int, ...}.  The
+    cache (the recurrent state for ssm) is updated in place and
+    returned."""
+    tokens, pos = batch["tokens"], int(batch["pos"])
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer.decode_step(cfg, params, cache, tokens, pos)
+    if cfg.family == "ssm":
+        return ssm.xlstm_decode_step(cfg, params, cache, tokens, pos)
+    if cfg.family == "hybrid":
+        return hybrid.decode_step(cfg, params, cache, tokens, pos)
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, params, cache, tokens, pos,
+                                  batch["enc_out"])
+    raise ValueError(cfg.family)
 
 
 def param_count(params: dict) -> int:

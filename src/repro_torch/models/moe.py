@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..pytree import tree_map
 from . import common as cm
 
 
@@ -46,8 +45,8 @@ def init_moe(gen: torch.Generator, cfg, device: torch.device) -> dict:
         "w_down": _experts(gen, e, f, d, cfg.dtype, device),    # [E, F, D]
     }
     if cfg.moe_num_shared > 0:
-        p["shared"] = tree_map(lambda x: x.to(device), cm.init_mlp(
-            gen, d, f * cfg.moe_num_shared, cfg.dtype))
+        p["shared"] = cm.to_device(cm.init_mlp(
+            gen, d, f * cfg.moe_num_shared, cfg.dtype), device)
     return p
 
 

@@ -1,10 +1,11 @@
-"""Decoder-only transformer LM covering the dense / MoE / MLA families.
+"""Decoder-only transformer LM covering the dense / MoE / MLA / vlm families.
 
 Counterpart of ``repro.models.transformer``: llama-style dense blocks
-(smollm-135m, olmo-1b, minicpm-2b), gemma3-style local/global sliding
-windows, MoE blocks with shared + routed experts (olmoe-1b-7b,
-deepseek-v2-236b; :mod:`repro_torch.models.moe`) and MLA with the
-absorbed-form decode (deepseek-v2; :mod:`repro_torch.models.mla`).
+(smollm-135m, olmo-1b, minicpm-2b, and phi-3-vision's backbone behind its
+patch prefix), gemma3-style local/global sliding windows, MoE blocks with
+shared + routed experts (olmoe-1b-7b, deepseek-v2-236b;
+:mod:`repro_torch.models.moe`) and MLA with the absorbed-form decode
+(deepseek-v2; :mod:`repro_torch.models.mla`).
 
 Blocks are stacked ``[L, ...]`` as in the reference; the reference scans
 them, the port loops over layer views (``scan_layers`` computes the same
@@ -16,7 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from ..pytree import tree_map
 from . import common as cm
 from .mla import init_mla, init_mla_cache, mla_attention
 from .moe import init_moe, moe_block
@@ -25,61 +25,38 @@ from .moe import init_moe, moe_block
 def _block_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
     """One block's params, each weight drawn on the CPU and moved to
     ``device`` as it is drawn."""
-    def put(tree):
-        return tree_map(lambda x: x.to(device), tree)
-
     p = {}
     if cfg.use_mla:
         p["attn"] = init_mla(gen, cfg, device)
     else:
-        p["attn"] = put(cm.init_attention(gen, cfg.d_model, cfg.num_heads,
-                                          cfg.num_kv_heads, cfg.head_dim,
-                                          cfg.dtype))
-    p["ln1"] = put(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype))
-    p["ln2"] = put(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype))
+        p["attn"] = cm.to_device(cm.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.dtype), device)
+    p["ln1"] = cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
+                            device)
+    p["ln2"] = cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
+                            device)
     if cfg.moe_num_experts > 0:
         p["moe"] = init_moe(gen, cfg, device)
     else:
-        p["mlp"] = put(cm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
+        p["mlp"] = cm.to_device(cm.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                            cfg.dtype), device)
     return p
-
-
-def _stack_layers(n: int, draw) -> dict:
-    """``n`` draws of a block's param tree stacked along a leading layer
-    axis: the stacked tensors are allocated on the first draw's device and
-    each draw is copied in as it comes, so the device holds the stack and
-    one block, and the host one weight, at a time."""
-    first = draw()
-    out = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
-                                         dtype=x.dtype, device=x.device),
-                   first)
-    for i in range(n):
-        tree = first if i == 0 else draw()
-        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
-        first = tree = None
-    return out
-
-
-def _layer(tree, i: int):
-    """Layer ``i``'s view of a stacked ``[L, ...]`` tree (no copy)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def init(gen: torch.Generator, cfg, device: torch.device) -> dict:
     """Random params drawn from ``gen`` on the CPU, weight by weight, each
     moved to ``device`` as it is drawn, so a seed gives the same weights
     on every device and host memory holds one weight at a time."""
-    blocks = _stack_layers(cfg.num_layers,
-                           lambda: _block_init(gen, cfg, device))
+    blocks = cm.stack_layers(cfg.num_layers,
+                             lambda: _block_init(gen, cfg, device))
     embed = cm.init_embed(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype,
                           tie=cfg.tie_embeddings)
     return {
         "blocks": blocks,
-        "embed": tree_map(lambda x: x.to(device), embed),
-        "ln_f": tree_map(lambda x: x.to(device),
-                         cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype)),
+        "embed": cm.to_device(embed, device),
+        "ln_f": cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
+                             device),
     }
 
 
@@ -148,18 +125,25 @@ def _dyn_window_attention(cfg, p, x, positions, window, kv_cache, cache_pos):
 
 
 def forward(cfg, params, tokens: torch.Tensor, *,
+            extra_embeds: torch.Tensor | None = None,
             remat: bool | None = None) -> torch.Tensor:
     """tokens: [B, S] -> float32 logits [B, S, padded_vocab].
+
+    ``extra_embeds`` [B, P, D] (the vlm family's patch stub) are put
+    before the tokens in ``cfg.dtype``; positions count over P + S and the
+    logits of the P patch positions are dropped.
 
     With ``remat`` (``cfg.remat`` when None) and autograd recording, each
     block runs under :func:`repro_torch.models.common.remat_wrap`, as the
     reference wraps its scan body: the backward recomputes the block's
     activations, flash forward included.  Under ``torch.no_grad`` there is
-    nothing to recompute and the blocks run plainly.  (The reference's
-    ``extra_embeds`` prefix serves the vlm family, which is not ported
-    yet.)"""
+    nothing to recompute and the blocks run plainly."""
     remat = cfg.remat if remat is None else remat
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    n_extra = 0
+    if extra_embeds is not None:
+        n_extra = extra_embeds.shape[1]
+        h = torch.cat([extra_embeds.to(cfg.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
 
     def block(h, p, window):
@@ -168,8 +152,8 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     if remat and torch.is_grad_enabled():
         block = cm.remat_wrap(block, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
-        h = block(h, _layer(params["blocks"], i), window)
-    h = cm.apply_norm(params["ln_f"], h, cfg.norm)
+        h = block(h, cm.layer(params["blocks"], i), window)
+    h = cm.apply_norm(params["ln_f"], h, cfg.norm)[:, n_extra:]
     return cm.unembed(params["embed"], h).float()
 
 
@@ -191,7 +175,8 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos: int):
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.full((1, 1), pos, dtype=torch.long, device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
-        h, _ = _block_apply(cfg, _layer(params["blocks"], i), h, positions,
-                            window, kv_cache=_layer(cache, i), cache_pos=pos)
+        h, _ = _block_apply(cfg, cm.layer(params["blocks"], i), h, positions,
+                            window, kv_cache=cm.layer(cache, i),
+                            cache_pos=pos)
     h = cm.apply_norm(params["ln_f"], h, cfg.norm)
     return cm.unembed(params["embed"], h[:, -1]).float(), cache

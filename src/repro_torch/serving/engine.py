@@ -44,16 +44,18 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _step(self, cache, tokens: torch.Tensor, pos: int):
+    def _step(self, cache, tokens: torch.Tensor, pos: int, extra: dict):
         return M.serve_step(self.cfg, self.params, cache,
-                            {"tokens": tokens, "pos": pos})
+                            {"tokens": tokens, "pos": pos, **extra})
 
     def generate(self, prompts: np.ndarray, gen_len: int, *,
+                 extra_batch: dict | None = None,
                  prefill_mode: str = "fused") -> GenerationResult:
         """prompts: [B, P] int (a common prompt length P).
 
-        ``prefill_mode``: ``"fused"`` (default) or ``"per_token"``; both
-        are a loop over ``serve_step`` here.
+        ``extra_batch`` joins every step's batch (the encoder output
+        ``enc_out`` for encdec).  ``prefill_mode``: ``"fused"`` (default)
+        or ``"per_token"``; both are a loop over ``serve_step`` here.
         """
         if prefill_mode not in PREFILL_MODES:
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}; "
@@ -64,13 +66,15 @@ class DecodeEngine:
                              f"exceed max_len {self.max_len}")
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                device=self.device)
+        extra = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in (extra_batch or {}).items()}
         with torch.no_grad():
             cache = M.init_cache(self.cfg, b, self.max_len,
                                  device=self.device)
             t0 = time.perf_counter()
             logits = None
             for i in range(p):
-                logits, cache = self._step(cache, toks[:, i:i + 1], i)
+                logits, cache = self._step(cache, toks[:, i:i + 1], i, extra)
             self._sync()
             t1 = time.perf_counter()
 
@@ -79,7 +83,7 @@ class DecodeEngine:
             tok = torch.argmax(logits, -1)[:, None]
             for j in range(gen_len):
                 out[:, j] = tok[:, 0]
-                logits, cache = self._step(cache, tok, p + j)
+                logits, cache = self._step(cache, tok, p + j, extra)
                 tok = torch.argmax(logits, -1)[:, None]
             self._sync()
             t2 = time.perf_counter()

@@ -4,7 +4,9 @@ same solve on the CPU, bit for bit (the §V instance, a window of each
 catalog scenario, an online window, a migrate solve and a fused stream
 window; SA on one draw tape, the exact solver and Lemma 8's bounds, with
 their closure launches), the olmoe and deepseek-v2 smoke prefills against
-the CPU port, and the flash-attention kernels
+the CPU port, the xLSTM, Zamba2, Whisper and phi-3-vision smoke models
+(prefill, decode with states, engine tokens, whisper's served plan)
+against the CPU port, and the flash-attention kernels
 (forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
 tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
@@ -602,3 +604,113 @@ def test_moe_mla_smoke_prefill_on_card_matches_cpu(cuda, no_tf32, arch,
     want = steps.make_prefill_step(cfg, device="cpu")(params,
                                                       {"tokens": toks})
     _close(got.cpu(), want, 2e-4)
+
+
+FAMILY_ARCHS = ["xlstm_125m", "zamba2_2_7b", "whisper_base",
+                "phi3_vision_4_2b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_model_on_card_matches_cpu(cuda, no_tf32, arch):
+    """The xLSTM, Zamba2, Whisper and phi-3-vision smoke models (float32,
+    attn_impl="flash") on the card against the CPU port on the same
+    weights at float32's 2e-4: the prefill (phi-3-vision with its 8
+    patches and 120 tokens, so P + S = 128 takes the CUDA-core forward
+    once a layer at head width 16; the others launch no flash kernel),
+    four decode steps with the state or cache after each, and the decode
+    engine's tokens."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    from repro_torch.pytree import items, tree_map
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = dataclasses.replace(registry.smoke_config(arch),
+                              dtype=torch.float32, attn_impl="flash")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    dparams = tree_map(lambda x: x.to(cuda), params)
+    rng = np.random.default_rng(1)
+    s = 120 if cfg.family == "vlm" else 16
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s))}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.num_frames, cfg.d_model)).astype(np.float32)
+    flash.reset_launch_count()
+    got = steps.make_prefill_step(cfg)(dparams, batch)
+    torch.cuda.synchronize()
+    assert flash.launch_count("flash_fwd_lse", "simt") == (
+        cfg.num_layers if cfg.family == "vlm" else 0)
+    assert flash.launch_count("flash_fwd_lse", "sm90") == 0
+    want = steps.make_prefill_step(cfg, device="cpu")(params, batch)
+    _close(got.cpu(), want, 2e-4)
+
+    extra = {}
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            extra["enc_out"] = encdec.encode(
+                cfg, params, torch.from_numpy(batch["frames"]))
+    dextra = {k: v.to(cuda) for k, v in extra.items()}
+    caches = (M.init_cache(cfg, 2, 8, device=cuda),
+              M.init_cache(cfg, 2, 8, device="cpu"))
+    step_card = steps.make_serve_step(cfg)
+    step_cpu = steps.make_serve_step(cfg, device="cpu")
+    for i in range(4):
+        tok = batch["tokens"][:, i:i + 1]
+        a, _ = step_card(dparams, caches[0], {"tokens": tok, "pos": i,
+                                              **dextra})
+        b, _ = step_cpu(params, caches[1], {"tokens": tok, "pos": i,
+                                            **extra})
+        _close(a.cpu(), b, 2e-4)
+        cpu_state = dict(items(caches[1]))
+        for key, leaf in items(caches[0]):
+            _close(leaf.cpu(), cpu_state[key], 2e-4)
+    prompts = batch["tokens"][:, :5]
+    a = DecodeEngine(cfg, dparams, max_len=16).generate(
+        prompts, 6, extra_batch=dextra)
+    b = DecodeEngine(cfg, params, max_len=16, device="cpu").generate(
+        prompts, 6, extra_batch=extra)
+    assert np.array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_at_head_width_96_on_card(cuda, no_tf32, dtype):
+    """phi-3-vision's head width (96) takes the CUDA-core forward in bf16
+    too; against its plain version at a ragged causal length."""
+    from repro_torch.kernels import flash
+    assert flash.kernel_variant("flash_fwd_lse", torch.bfloat16, 96,
+                                96) == "simt"
+    g = torch.Generator(device=cuda).manual_seed(96)
+    q, k, v = (torch.randn(4, 656, 96, device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    n0 = flash.launch_count("flash_fwd_lse", "simt")
+    o, lse = flash.flash_fwd_lse(q, k, v, scale=96 ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    assert flash.launch_count("flash_fwd_lse", "simt") == n0 + 1
+    want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=96 ** -0.5,
+                                             causal=True)
+    _close(o, want_o, *FLASH_TOL[dtype])
+    _close(lse, want_lse, 1e-5)
+
+
+def test_whisper_serve_plan_on_card_matches_cpu(cuda):
+    """``launch/serve.run("whisper_base")`` on the card: the routed plan
+    through the min-plus kernel equals the CPU port's, and the engine
+    decodes against the encoder's output."""
+    from repro_torch.launch import serve
+    minplus.reset_launch_count()
+    _, plans, res = serve.run("whisper_base", requests=2, gen=4,
+                              device=cuda, verbose=False)
+    torch.cuda.synchronize()
+    assert minplus.launch_count() > 0
+    _, cpu_plans, cpu_res = serve.run("whisper_base", requests=2, gen=4,
+                                      device="cpu", verbose=False)
+    assert [(p.priority, p.bound_s, p.nodes_used) for p in plans] == \
+        [(p.priority, p.bound_s, p.nodes_used) for p in cpu_plans]
+    assert res.tokens.shape == cpu_res.tokens.shape == (2, 4)

@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+FAMILY_ARCHS = ("xlstm_125m", "zamba2_2_7b", "whisper_base",
+                "phi3_vision_4_2b")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -36,6 +38,8 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.core.annealing, repro_torch.core.bounds\n"
             "import repro_torch.core.exact, repro_torch.core.layered_graph\n"
             "import repro_torch.models.moe, repro_torch.models.mla\n"
+            "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
+            "import repro_torch.models.encdec\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
@@ -106,6 +110,12 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: model.init_cache(registry.smoke_config("deepseek_v2_236b"),
                                  1, 4),
         lambda: model.init_cache(cfg, 1, 4),
+        *(lambda a=arch: model.init_params(registry.smoke_config(a),
+                                           torch.Generator())
+          for arch in FAMILY_ARCHS),
+        *(lambda a=arch: model.init_cache(registry.smoke_config(a), 1, 4)
+          for arch in FAMILY_ARCHS),
+        lambda: serve.run("whisper_base", 1, 1, verbose=False),
         lambda: interop.lm_params_from_numpy({}, cfg, device="cuda"),
         lambda: steps.make_train_step(cfg),
         lambda: train.train("smollm_135m", steps=1),

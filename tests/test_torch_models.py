@@ -196,26 +196,20 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_lists_only_ported_archs():
-    """The registry lists the reference's architectures, in its order;
-    the models of the ssm, hybrid, encdec and vlm families are not ported
-    yet."""
+    """The registry lists the reference's architectures, in its order, and
+    every one of them is ported: its smoke model initialises on the CPU
+    with the reference's param count."""
     assert treg.ARCH_IDS == jreg.ARCH_IDS
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get("llama_70b")
-    for arch in ("whisper_base", "xlstm_125m"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TM.init_params(treg.smoke_config(arch),
-                           torch.Generator().manual_seed(0), device="cpu")
-
-
-@pytest.mark.parametrize("family,fields", [
-    ("ssm", {}), ("hybrid", {}), ("encdec", {}), ("vlm", {})])
-def test_unported_families_raise(family, fields):
-    cfg = TM.ModelConfig(name="x", family=family, num_layers=1, d_model=16,
-                         num_heads=2, num_kv_heads=2, d_ff=32,
-                         vocab_size=64, **fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert set(TM.PORTED_FAMILIES) == {treg.smoke_config(a).family
+                                       for a in treg.ARCH_IDS}
+    for arch in treg.ARCH_IDS:
+        params = TM.init_params(treg.smoke_config(arch),
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+        want = JM.init_params(jreg.smoke_config(arch), jax.random.PRNGKey(0))
+        assert TM.param_count(params) == JM.param_count(want), arch
 
 
 def test_init_params_is_seeded_and_device_independent():
