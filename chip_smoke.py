@@ -59,8 +59,10 @@ Phases, each of which fails the run by exception:
      ``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}) and the
      CUDA-core dq and dk/dv (``csrc/flash_bwd.cu``), at the training shape
      ([36, 2048, 64] bf16, all four kernels), at float32 shapes with
-     d = dv and d != dv (192 -> 128), at bf16 d = 128, at ragged and short
-     lengths, causal and not;
+     d = dv and d != dv (192 -> 128), at bf16 d = 128, at bf16 d = 96 and
+     192 -> 128 (the CUDA-core kernels, at [32, 2624, 96] and
+     [128, 2048, 192 -> 128] and ragged), at ragged and short lengths,
+     causal and not;
  11. drive the training path at smollm-135m's full width (random weights
      from seed 0): float32 with TF32 off at B=2, S=512, loss and grads
      with attn_impl="flash" against "xla" (the CUDA-core kernels); then
@@ -167,7 +169,31 @@ Phases, each of which fails the run by exception:
      recurrent families' at S = 128); the
      CUDA-core forward at [32, 2624, 96] bf16 against its plain version,
      timed with its bound and SDPA; ``launch/serve.run("whisper_base")``'s
-     plan on the card equal to the CPU port's bit for bit.
+     plan on the card equal to the CPU port's bit for bit;
+ 19. every family's training on the card: the bf16 CUDA-core dq and dk/dv
+     at phi-3-vision's [32, 2624, 96] and MLA's [128, 2048, 192 -> 128]
+     against their plain versions, timed with their bounds and SDPA's
+     backward; the six non-dense smoke configs in float32 (TF32 off,
+     flash, remat), card against the CPU port (the MoE expert choices
+     equal first, then the loss at rtol 1e-5 and every gradient leaf at
+     atol 1e-5 + rtol 1e-4), with phi-3-vision (also at full width, one
+     layer) and deepseek-v2 flash against xla on the card; three bf16
+     ``make_train_step`` steps with remat of olmoe-1b-7b (B=4 S=2048),
+     phi-3-vision-4.2b (B=1, 576 standard-normal patches + 2048; zero
+     patches overflow its gradients at depth, in the JAX package too),
+     zamba2-2.7b (B=1 S=512), xlstm-125m (B=4 S=256) and whisper-base
+     (B=4, 1,500 zero frames, S=448), at full width and at the depth
+     ``train_depths``' memory reckoning allows (weights from phases
+     17-18, seed 0), every launch counter set to 0 before each step and
+     read after it (per layer two forwards, one dq, one dk/dv:
+     tensor-core for olmoe, CUDA-core for phi-3-vision, none for the
+     others), finite, timed, peak memory, a profiled step (the recurrent
+     families' at S = 64); ``grad_compress`` over one olmoe layer's bf16
+     gradients, card == CPU bit for bit; deepseek-v2's one full-width
+     layer's bf16 loss and gradients (B=1 S=2048); the six
+     smoke ``train()`` runs in float32 card == CPU, whisper-base's killed
+     and resumed; smollm-135m's bf16 step under ``remat_policy="dots"``
+     against "full" (loss and launches equal, peak memory).
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -329,6 +355,25 @@ def profiler_works() -> bool:
     return True
 
 
+def device_kernel_times(prof) -> dict:
+    """name -> [busy us, count] of the events a profile saw run on the
+    card (kernels, copies, sets), summed as ``key_averages()`` sums their
+    ``device_time_total``, but read straight from the trace's raw events:
+    ``key_averages`` first builds a Python event of every host operator
+    too, which takes tens of seconds for the tens of thousands of
+    launches of a recurrent step."""
+    from torch.autograd import DeviceType
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async() \
+                or e.start_thread_id() != e.end_thread_id():
+            continue
+        row = out[e.name()]
+        row[0] += (e.end_ns() - e.start_ns()) / 1e3
+        row[1] += 1
+    return {k: v for k, v in out.items() if v[0] > 0}
+
+
 def profile_device(label: str, fn, *, top: int = 8) -> None:
     """Device-time breakdown of one warm call of ``fn`` (torch.profiler):
     busy time by kernel name, launches, and the device's idle share.
@@ -336,7 +381,6 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
     autograd-function rows repeat the time of the kernels they
     launched)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -345,24 +389,22 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.device_time_total > 0]
-    busy_us = sum(e.device_time_total for e in kernels)
+    kernels = device_kernel_times(prof)
+    busy_us = sum(us for us, _ in kernels.values())
     if busy_us == 0:
         log(f"profile of {label}: no device time recorded (device "
             f"breakdown not measured)")
         return
     log(f"profile of {label}: wall {wall_us:.0f} us (profiled), device "
         f"busy {busy_us:.0f} us, idle share {1 - busy_us / wall_us:.3f}, "
-        f"{sum(e.count for e in kernels)} device kernels")
-    rows = sorted(kernels, key=lambda e: -e.device_time_total)[:top]
-    rows += [e for e in kernels if ("minplus" in e.key or "flash" in e.key)
-             and e not in rows]
-    for e in rows:
-        log(f"  {e.device_time_total:9.0f} us {e.count:6d}x "
-            f"({e.device_time_total / e.count:.2f} us each, "
-            f"{e.device_time_total / busy_us:.1%})  {e.key[:80]}")
+        f"{sum(n for _, n in kernels.values())} device kernels")
+    rows = sorted(kernels, key=lambda k: -kernels[k][0])[:top]
+    rows += [k for k in kernels if ("minplus" in k or "flash" in k)
+             and k not in rows]
+    for k in rows:
+        us, n = kernels[k]
+        log(f"  {us:9.0f} us {n:6d}x ({us / n:.2f} us each, "
+            f"{us / busy_us:.1%})  {k[:80]}")
 
 
 # -- phases 5-9: the serving path (flash attention, prefill, decode) ---------
@@ -759,7 +801,16 @@ BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (2, 64, 128, 128, "bfloat16", True),
              (1, 1, 64, 64, "bfloat16", True),
              (2, 1000, 64, 64, "bfloat16", False),
-             (2, 300, 128, 128, "bfloat16", False)]
+             (2, 300, 128, 128, "bfloat16", False),
+             # bf16 at phi-3-vision's 96 and MLA's 192 -> 128: the
+             # CUDA-core kernels, at the train paths' shapes and ragged
+             (32, 2624, 96, 96, "bfloat16", True),
+             (128, 2048, 192, 128, "bfloat16", True),
+             (4, 1000, 96, 96, "bfloat16", True),
+             (4, 1000, 192, 128, "bfloat16", True),
+             # olmoe-1b-7b's train step (B=4, 16 heads of 128): the
+             # tensor-core dq and dk/dv at the shape phase 19 runs them
+             (64, 2048, 128, 128, "bfloat16", True)]
 # full-width float32 grads, flash against the XLA-style path (TF32 off):
 # per leaf, max |diff| <= GRAD_REL * max |grad| of that leaf -- the same
 # function summed in another order through 30 layers (7.0e-7 on an H100);
@@ -814,7 +865,6 @@ def training_phases(dev, smi: str) -> list[dict]:
 
     import torch
     import torch.nn.functional as F
-    from repro_torch import pytree
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.kernels import flash, minplus, ref
@@ -892,15 +942,8 @@ def training_phases(dev, smi: str) -> list[dict]:
         vocab_size=full.vocab_size, seq_len=512, global_batch=2),
         device=dev).batch_at(0)
 
-    def loss_and_grads(cfg):
-        flat = [x.detach().requires_grad_() for x in pytree.leaves(params32)]
-        loss = M.loss_fn(cfg, pytree.unflatten(params32, flat), batch32)
-        return loss.detach(), torch.autograd.grad(loss, flat)
-
-    flash.reset_launch_count()
-    loss_f, grads_f = loss_and_grads(cfg32)
-    torch.cuda.synchronize()
-    got = flash_variant_counts(flash)
+    got, _ = flash_vs_xla_grads("smollm-135m B=2 S=512 (remat on)", cfg32,
+                                params32, batch32, dev)
     f32_launches = {e: flash.launch_count(e, "simt") for e in BWD_ENTRIES}
     want = {"flash_fwd_lse/simt": 2 * full.num_layers,
             "flash_bwd_dq/simt": full.num_layers,
@@ -909,27 +952,7 @@ def training_phases(dev, smi: str) -> list[dict]:
         raise AssertionError(f"float32 loss + grads: launches {got}, "
                              f"expected {want} (remat on, the CUDA-core "
                              f"kernels)")
-    loss_x, grads_x = loss_and_grads(dataclasses.replace(cfg32,
-                                                         attn_impl="xla"))
-    torch.cuda.synchronize()
-    rel_loss = abs(float(loss_f) - float(loss_x)) / abs(float(loss_x))
-    if not math.isfinite(float(loss_f)) or rel_loss > LOSS_RTOL:
-        raise AssertionError(f"float32 loss flash {float(loss_f)} vs xla "
-                             f"{float(loss_x)}")
-    worst = 0.0
-    for key, a, b in zip((k for k, _ in pytree.items(params32)), grads_f,
-                         grads_x):
-        scale_b = float(b.abs().max())
-        diff = float((a - b).abs().max())
-        if not bool(torch.isfinite(a).all()) or diff > GRAD_REL * scale_b:
-            raise AssertionError(f"float32 grad {key}: max |flash - xla| "
-                                 f"{diff:.3e} > {GRAD_REL} x {scale_b:.3e}")
-        worst = max(worst, diff / max(scale_b, 1e-30))
-    log(f"float32 loss + grads B=2 S=512 (TF32 off, remat on): loss "
-        f"{float(loss_f):.6f}, flash vs xla rel {rel_loss:.2e} (tolerance "
-        f"{LOSS_RTOL}); worst leaf max |diff| / max |grad| {worst:.2e} "
-        f"(tolerance {GRAD_REL}); launches fwd/dq/dkv {got}")
-    del params32, grads_f, grads_x
+    del params32
 
     cfg = dataclasses.replace(full, attn_impl="flash")       # bfloat16
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -2287,9 +2310,10 @@ def hold_and_time_fwd(rng, dev, heads, bh, s, d, dv, smi):
             "shape": f"[{bh},{s},{width}] bf16"}
 
 
-def moe_mla_phase(dev, smi: str) -> dict:
+def moe_mla_phase(dev, smi: str, keep) -> dict:
     """Phase 17; returns the forward kernels' launches on this path and
-    their checks and times at the path's shapes."""
+    their checks and times at the path's shapes.  Passes each model's
+    bf16 weights to ``keep(arch, params)``."""
     import gc
 
     import torch
@@ -2322,6 +2346,7 @@ def moe_mla_phase(dev, smi: str) -> dict:
         {"flash_fwd_lse/simt": full.num_layers})
     out["launches"]["olmoe-1b-7b float32 prefill"] = counts
     params = cast_params(params, torch.bfloat16)
+    keep("olmoe_1b_7b", params)
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(full, attn_impl="flash")
@@ -2434,6 +2459,7 @@ def moe_mla_phase(dev, smi: str) -> dict:
     del cache, got, want
 
     params = cast_params(params, torch.bfloat16)
+    keep("deepseek_v2_236b", params)
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(full, attn_impl="flash")
@@ -2652,10 +2678,11 @@ def serve_family(name, cfg, params, dev, smi, b, s, rng,
     return out
 
 
-def families_phase(dev, smi: str) -> dict:
+def families_phase(dev, smi: str, keep) -> dict:
     """Phase 18; returns the flash launches of each path, the min-plus
     launches of whisper's served plan, phi-3-vision's forward kernel
-    check and times at PHI3V_SHAPE, and each family's serving figures."""
+    check and times at PHI3V_SHAPE, and each family's serving figures.
+    Passes each family's bf16 weights to ``keep(arch, params)``."""
     import gc
 
     import torch
@@ -2714,6 +2741,7 @@ def families_phase(dev, smi: str) -> dict:
         cfg = dataclasses.replace(full, attn_impl="flash")
         want_flash = ({"flash_fwd_lse/simt": full.num_layers}
                       if full.family == "vlm" else {})
+        keep(arch, params)
         res = serve_family(name, cfg, params, dev, smi, b, s, rng,
                            want_flash)
         out["serving"][name] = res
@@ -2764,14 +2792,652 @@ def families_phase(dev, smi: str) -> dict:
     return out
 
 
+# -- phase 19: the train steps of the other five families --------------------
+
+PHI3V_BWD = (32, 576 + 2048, 96, 96)   # [B*H, P + S, d, dv] of phi-3-vision's
+#                                        train step at B = 1
+CARD_BYTES = 80e9                      # the H100's 80 GB
+SPARE_BYTES = 15e9                     # kept free of the memory reckoning
+# (arch, depth unit, bf16 train step (B, S), the flash kernels its
+# attention must take: tensor-core at olmoe's d = 128, CUDA-core at
+# phi-3-vision's d = 96, none for the rest); the depth is cut, in whole
+# units (zamba2's groups of 6 Mamba2 layers), only as far as
+# train_reckoning says the card forces
+TRAIN_FAMILIES = (("olmoe_1b_7b", 1, (4, 2048), "sm90"),
+                  ("phi3_vision_4_2b", 1, (1, 2048), "simt"),
+                  ("zamba2_2_7b", 6, (1, 512), None),
+                  ("xlstm_125m", 1, (4, 256), None),
+                  ("whisper_base", 1, (4, 448), None))
+TRAIN_STEPS = 3
+# the six non-dense archs of the registry, trained at their smoke configs
+SMOKE_ARCHS = ("olmoe_1b_7b", "deepseek_v2_236b", "phi3_vision_4_2b",
+               "zamba2_2_7b", "xlstm_125m", "whisper_base")
+SMOKE_B, SMOKE_S = 2, 128    # float32 checks: S >= 128 takes flash
+# float32 card == CPU port: the loss at rtol 1e-5 and every gradient leaf
+# at tests/test_torch_train.py's GRAD_TOL (the same function summed in
+# another order)
+GRAD_TOL = (1e-5, 1e-4)
+# the recurrent families launch kernels per token (a zamba2-2.7b step of
+# 42 layers at S = 64 is ~100 k kernels): their step is profiled at this
+# length
+TRAIN_PROFILE_S = 64
+GC_TOPK_FRAC = 1e-3          # topk_mask's fraction in the grad_compress check
+
+
+def train_reckoning(cfg, b: int, s: int) -> dict:
+    """The device memory a bf16 ``make_train_step`` needs, by count from
+    the meta-device param tree: ~22 bytes a parameter (bf16 parameter and
+    gradient, float32 m and v, each old and new: ``AdamW.apply`` builds
+    every new tree before the old ones are dropped), ~20 bytes an element
+    of the largest leaf (``apply``'s float32 temporaries of one leaf),
+    and the activations under remat: the float32 logits path (~16 bytes a
+    token and vocab entry) and ~100 bytes a token and channel of the
+    widest projection for the block recomputed in the backward."""
+    from repro_torch.models import model as M
+    from repro_torch.pytree import leaves
+    sizes = [x.numel() for x in leaves(M.param_shapes(cfg))]
+    wide = max(cfg.d_model, cfg.d_ff, cfg.moe_top_k * cfg.moe_d_ff)
+    tokens = b * (s + cfg.num_patches + cfg.num_frames)
+    return {"params": sum(sizes), "largest": max(sizes),
+            "state": 22 * sum(sizes) + 20 * max(sizes),
+            "act": 16 * b * s * cfg.padded_vocab + 100 * tokens * wide}
+
+
+def train_depths() -> dict:
+    """arch -> (depth, reckoning at it, reckoning one unit deeper or None):
+    the deepest whole number of units whose reckoning leaves SPARE_BYTES of
+    the card free."""
+    from repro_torch.configs import registry
+    out = {}
+    for arch, unit, (b, s), _ in TRAIN_FAMILIES:
+        full = registry.config(arch)
+        depth, fits, over = 0, None, None
+        for n in range(unit, full.num_layers + 1, unit):
+            r = train_reckoning(dataclasses.replace(full, num_layers=n), b, s)
+            if r["state"] + r["act"] > CARD_BYTES - SPARE_BYTES:
+                over = r
+                break
+            depth, fits = n, r
+        if not depth:
+            raise AssertionError(f"{arch}: one unit of depth does not fit")
+        out[arch] = (depth, fits, over)
+    return out
+
+
+def cut_params(params: dict, depth: int, device) -> dict:
+    """The first ``depth`` layers of a stacked param tree ("blocks", or
+    zamba2's "mamba"), copied to ``device`` with every other leaf."""
+    from repro_torch.pytree import tree_map
+    key = "mamba" if "mamba" in params else "blocks"
+    out = {k: tree_map(lambda x: x.to(device), v) for k, v in params.items()
+           if k != key or depth is None}
+    if depth is not None and key in params:
+        out[key] = tree_map(lambda x: x[:depth].to(device, copy=True),
+                            params[key])
+    return out
+
+
+def parking(depths: dict) -> tuple:
+    """(keep, parked): phases 17-18 call ``keep(arch, params)`` with each
+    model's bf16 weights (seed 0), and ``parked[arch]`` holds them, cut to
+    ``depths``' depth (whole where the arch has none), in host memory
+    until phase 19 trains on them (a draw at full width costs ~10-35 s
+    of host time a model)."""
+    import torch
+    parked = {}
+
+    def keep(arch: str, params: dict) -> None:
+        parked[arch] = cut_params(params, depths.get(arch, (None,))[0],
+                                  torch.device("cpu"))
+    return keep, parked
+
+
+def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
+    """The bf16 CUDA-core dq and dk/dv kernels at [bh, s, d -> dv] (one
+    batch row of bh heads) against their plain versions at BWD_TOL; their
+    times, the plain versions', the backward of
+    F.scaled_dot_product_attention (``autograd.grad`` of a saved forward
+    on [1, bh, s, d]; None where it refuses the shape) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ref
+    if flash.kernel_variant("flash_bwd_dq", torch.bfloat16, d, dv) != "simt":
+        raise AssertionError(f"bf16 d={d} dv={dv} should take the CUDA-core "
+                             f"backward")
+    q, k, v = flash_inputs(rng, bh, s, d, dv, "bfloat16", dev)
+    do = torch.from_numpy(rng.standard_normal((bh, s, dv), dtype=np.float32)
+                          ).to(dev, torch.bfloat16)
+    kw = dict(scale=1 / math.sqrt(d), causal=True)
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dq = flash.flash_bwd_dq(*args, **kw)
+    dk, dv_ = flash.flash_bwd_dkv(*args, **kw)
+    want_dq = ref.flash_bwd_dq_ref(*args, **kw)
+    want_dk, want_dv = ref.flash_bwd_dkv_ref(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL["bfloat16"]
+    width = f"{d}->{dv}" if d != dv else f"{d}"
+    what = f"flash_bwd (simt) bf16 [{bh},{s},{width}] causal"
+    err = {"flash_bwd_dq": max_err_within(dq, want_dq, atol, what + " dq",
+                                          rtol),
+           "flash_bwd_dkv": max(
+               max_err_within(dk, want_dk, atol, what + " dk", rtol),
+               max_err_within(dv_, want_dv, atol, what + " dv", rtol))}
+    share_dkv = max(gate_share(dk, want_dk, atol, rtol),
+                    gate_share(dv_, want_dv, atol, rtol))
+    log(f"{what}: max |dq - plain| {err['flash_bwd_dq']:.3e} (share of the "
+        f"gate {gate_share(dq, want_dq, atol, rtol):.3f}), max |dk, dv - "
+        f"plain| {err['flash_bwd_dkv']:.3e} (share {share_dkv:.3f}); atol "
+        f"{atol}, rtol {rtol}")
+    del dq, dk, dv_, want_dq, want_dk, want_dv
+    t = {e: event_ms(lambda e=e: getattr(flash, e)(*args, **kw), reps=5,
+                     inner=2) for e in BWD_ENTRIES}
+    plain = {"flash_bwd_dq": event_ms(lambda: ref.flash_bwd_dq_ref(
+        *args, **kw), reps=3, inner=1),
+        "flash_bwd_dkv": event_ms(lambda: ref.flash_bwd_dkv_ref(*args, **kw),
+                                  reps=3, inner=1)}
+    qs, ks, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
+    try:
+        out4 = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              scale=kw["scale"])
+        do4 = do[None]
+        sdpa = event_ms(lambda: torch.autograd.grad(
+            out4, (qs, ks, vs), do4, retain_graph=True), reps=5, inner=2)
+    except RuntimeError as exc:
+        log(f"  F.scaled_dot_product_attention backward refuses d={d}, "
+            f"dv={dv}: library time not measured ({str(exc)[:120]})")
+        sdpa = None
+    bound = {e: flash_bwd_bound(bh, s, d, dv, "bfloat16", True, e)
+             for e in BWD_ENTRIES}
+    sdpa_txt = "not measured" if sdpa is None else f"{sdpa * 1e3:.1f} us"
+    for e in BWD_ENTRIES:
+        log(f"  {e} (simt) bf16 [{bh},{s},{width}] causal on {smi}: "
+            f"{t[e] * 1e3:.1f} us per call; bound {bound[e][0] * 1e3:.2f} us "
+            f"({bound[e][1]}); plain version {plain[e] * 1e3:.1f} us")
+    log(f"  F.scaled_dot_product_attention backward (library yardstick, "
+        f"dq, dk and dv together): {sdpa_txt}")
+    return {"err": err, "ms": t, "plain_ms": plain, "sdpa_ms": sdpa,
+            "bound": bound, "shape": f"[{bh},{s},{width}] bf16"}
+
+
+def smoke_train_batch(cfg, rng, b: int, s: int) -> dict:
+    """numpy tokens [b, s], next-token labels with every fourth masked (-1),
+    and standard-normal patches or frames where the family takes them."""
+    batch = family_batch(cfg, rng, b, s)
+    labels = np.roll(batch["tokens"], -1, axis=1)
+    labels[:, ::4] = -1
+    batch["labels"] = labels
+    return batch
+
+
+def loss_and_grads(cfg, params, batch: dict, dev):
+    """(loss, gradient of every leaf in ``leaves`` order) of ``loss_fn`` on
+    ``dev`` (leaves that no layer reads get a zero gradient, as in
+    ``make_train_step``)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.pytree import leaves, unflatten
+    flat = [x.detach().requires_grad_() for x in leaves(params)]
+    on = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss = M.loss_fn(cfg, unflatten(params, flat), on)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def flash_vs_xla_grads(name, cfg32, params, batch, dev) -> tuple:
+    """float32 loss and gradients with attn_impl="flash" (the CUDA-core
+    forward and backward, launches counted) against "xla" on the card:
+    the loss at LOSS_RTOL, each leaf within GRAD_REL of its largest
+    |value|; returns (launches, worst leaf ratio)."""
+    import torch
+    from repro_torch.kernels import flash
+    from repro_torch.pytree import items
+    flash.reset_launch_count()
+    loss_f, grads_f = loss_and_grads(cfg32, params, batch, dev)
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    loss_x, grads_x = loss_and_grads(dataclasses.replace(
+        cfg32, attn_impl="xla"), params, batch, dev)
+    rel = abs(float(loss_f) - float(loss_x)) / abs(float(loss_x))
+    if not math.isfinite(float(loss_f)) or rel > LOSS_RTOL:
+        raise AssertionError(f"{name} float32 loss flash {float(loss_f)} vs "
+                             f"xla {float(loss_x)}")
+    worst = 0.0
+    for (key, _), a, b in zip(items(params), grads_f, grads_x, strict=True):
+        top = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        if not bool(torch.isfinite(a).all()) or diff > GRAD_REL * top:
+            raise AssertionError(f"{name} float32 grad {key}: max |flash - "
+                                 f"xla| {diff:.3e} > {GRAD_REL} x {top:.3e}")
+        worst = max(worst, diff / max(top, 1e-30))
+    log(f"{name} float32 loss + grads (TF32 off): flash vs xla on the card, "
+        f"loss rel {rel:.2e} (tolerance {LOSS_RTOL}), worst leaf max |diff| "
+        f"/ max |grad| {worst:.2e} (tolerance {GRAD_REL}); launches {counts}")
+    return counts, worst
+
+
+def smoke_card_vs_cpu(arch, rng, dev) -> dict:
+    """The smoke config in float32 (TF32 off, attn_impl="flash", remat on),
+    seed-0 weights on the card and on the CPU, one batch: for MoE the
+    top-k expert ids of every layer equal first; then the loss at rtol
+    1e-5 and every gradient leaf at GRAD_TOL, the flash launches (the
+    CUDA-core kernels, per layer two forwards, one dq, one dk/dv, where
+    the family takes flash)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import items, tree_map
+    cfg = dataclasses.replace(registry.smoke_config(arch),
+                              dtype=torch.float32, attn_impl="flash",
+                              remat=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    dparams = tree_map(lambda x: x.to(dev), params)
+    batch = smoke_train_batch(cfg, rng, SMOKE_B, SMOKE_S)
+    if cfg.family == "moe":
+        prefill = {k: v for k, v in batch.items() if k != "labels"}
+        _, got, _ = spy_prefill(steps.make_prefill_step(cfg, device=dev),
+                                dparams, prefill)
+        _, want, _ = spy_prefill(steps.make_prefill_step(cfg, device="cpu"),
+                                 params, prefill)
+        for layer, (a, b) in enumerate(zip(got, want, strict=True)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{arch} smoke: expert choices of layer "
+                                     f"{layer} differ between card and CPU")
+    flash.reset_launch_count()
+    loss, grads = loss_and_grads(cfg, dparams, batch, dev)
+    torch.cuda.synchronize()
+    counts = flash_variant_counts(flash)
+    want_counts = step_launches(
+        "simt" if cfg.family in ("moe", "vlm") else None, cfg.num_layers)
+    if counts != want_counts:
+        raise AssertionError(f"{arch} smoke float32 loss + grads: launches "
+                             f"{counts}, expected {want_counts}")
+    loss_h, grads_h = loss_and_grads(cfg, params, batch, "cpu")
+    rel = abs(float(loss) - float(loss_h)) / abs(float(loss_h))
+    if rel > 1e-5:
+        raise AssertionError(f"{arch} smoke float32 loss card {float(loss)} "
+                             f"vs CPU {float(loss_h)}")
+    err = max(max_err_within(a.cpu(), b, GRAD_TOL[0],
+                             f"{arch} smoke card vs CPU grad {key}",
+                             GRAD_TOL[1])
+              for (key, _), a, b in zip(items(params), grads, grads_h,
+                                        strict=True))
+    choices = " (expert choices equal in every layer)" \
+        if cfg.family == "moe" else ""
+    log(f"{arch} smoke float32 B={SMOKE_B} S={SMOKE_S} (TF32 off, remat): "
+        f"card vs CPU port loss rel {rel:.2e} (tolerance 1e-5), every "
+        f"gradient leaf max |diff| {err:.3e} (atol {GRAD_TOL[0]}, rtol "
+        f"{GRAD_TOL[1]}){choices}; launches {counts or 0}")
+    out = {"launches": counts}
+    if arch in ("phi3_vision_4_2b", "deepseek_v2_236b"):
+        out["flash_vs_xla"] = flash_vs_xla_grads(f"{arch} smoke", cfg,
+                                                 dparams, batch, dev)
+    return out
+
+
+def train_batches(cfg, b: int, s: int, n: int, dev) -> list:
+    """``n`` SyntheticStream batches, with the zero frames (encdec) that
+    ``train()`` gives, and standard-normal patches (vlm, drawn from seed
+    0).  Zero patches, as ``train()`` gives them, make every patch row's
+    residual stream exactly 0 in every layer: each RMSNorm backward then
+    multiplies those rows' gradient by rsqrt(eps) = 1000, which overflows
+    past ~10 layers, and 0 x inf makes the weight gradients NaN -- in the
+    JAX package's own train step too (tests/test_torch_families_train.py
+    holds both packages to that at 19 layers)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b), device=dev)
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for i in range(n):
+        batch = data.batch_at(i)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((b, cfg.num_frames, cfg.d_model),
+                                          dtype=cfg.dtype, device=dev)
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (b, cfg.num_patches, cfg.d_model), generator=gen).to(
+                dev, cfg.dtype)
+        out.append(batch)
+    return out
+
+
+def step_launches(variant, layers: int) -> dict:
+    """The flash launches of one train step with remat through
+    ``variant``'s kernels: per layer two forwards (forward and recompute),
+    one dq and one dk/dv; none where ``variant`` is None.  The caller
+    names the variant, so a head width the dispatch rule misroutes fails
+    the launch gate."""
+    if variant is None:
+        return {}
+    return {f"flash_fwd_lse/{variant}": 2 * layers,
+            f"flash_bwd_dq/{variant}": layers,
+            f"flash_bwd_dkv/{variant}": layers}
+
+
+def grad_compress_card_vs_cpu(cfg, params, batch, dev) -> None:
+    """``Int8Compressor.compress`` / ``decompress`` (the roundtrip) and
+    ``topk_mask`` over the bf16 gradient tree of one olmoe step, on the
+    card and on the CPU on the same tensors: codes, scales, residuals,
+    decompressed gradients and masks equal bit for bit."""
+    import torch
+    from repro_torch.optim.grad_compress import Int8Compressor, topk_mask
+    from repro_torch.pytree import items, leaves, tree_map, unflatten
+    _, grads = loss_and_grads(cfg, params, batch, dev)
+    tree = unflatten(params, list(grads))
+    del grads
+    comp = Int8Compressor()
+    results = {}
+    for where, g in (("card", tree), ("cpu", tree_map(lambda x: x.cpu(),
+                                                      tree))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, err = comp.compress(g, comp.init(g))
+        back = comp.decompress(codes)
+        t1 = time.perf_counter()
+        masks = tree_map(lambda x: topk_mask(x, GC_TOPK_FRAC), g)
+        torch.cuda.synchronize()
+        results[where] = ((t1 - t0, time.perf_counter() - t1),
+                          {"codes": tree_map(lambda qs: qs[0], codes),
+                           "scales": tree_map(lambda qs: qs[1], codes),
+                           "residuals": err, "decompressed": back,
+                           "masks": masks})
+    for part, tree_card in results["card"][1].items():
+        cpu = dict(items(results["cpu"][1][part]))
+        for key, x in items(tree_card):
+            if not torch.equal(x.cpu(), cpu[key]):
+                raise AssertionError(f"grad_compress {part} of {key}: card != "
+                                     f"CPU")
+    n = sum(x.numel() for x in leaves(tree))
+    b, s = batch["tokens"].shape
+    log(f"grad_compress over {cfg.name}'s bf16 gradient tree ("
+        f"{cfg.num_layers} layer at full width, B={b} S={s}: "
+        f"{len(leaves(tree))} leaves, {n:,} values,"
+        f" {Int8Compressor.compressed_bytes(tree):,} int8 bytes against "
+        f"{Int8Compressor.raw_bytes(tree):,} float32): int8 codes, scales, "
+        f"residuals, decompressed gradients and topk_mask (frac "
+        f"{GC_TOPK_FRAC}) card == CPU bit for bit; roundtrip and topk_mask: "
+        f"card {results['card'][0][0] * 1e3:.1f} + "
+        f"{results['card'][0][1] * 1e3:.1f} ms, CPU "
+        f"{results['cpu'][0][0]:.2f} + {results['cpu'][0][1]:.2f} s (host "
+        f"clock)")
+
+
+def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
+    """TRAIN_STEPS bf16 ``make_train_step`` steps of one family on
+    SyntheticStream batches, every launch counter set to 0 just before
+    each and read just after (exactly ``want``); finite
+    losses and parameters after the steps (a non-finite gradient would
+    make them NaN through the clip); peak memory, the step walls (host
+    clock around work ended by synchronize) and a profile of one step."""
+    import torch
+    from repro_torch.kernels import flash, minplus
+    from repro_torch.launch import steps
+    from repro_torch.pytree import leaves
+    opt = steps.default_optimizer(cfg)
+    opt_state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, device=dev)
+    batches = train_batches(cfg, b, s, TRAIN_STEPS, dev)
+    total = collections.Counter()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        for mod in (flash, minplus):
+            mod.reset_launch_count()
+        t0 = time.perf_counter()
+        loss, params, opt_state = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = flash_variant_counts(flash)
+        if counts != want or minplus.launch_count():
+            raise AssertionError(f"{arch} bf16 train step: flash launches "
+                                 f"{counts} (expected {want}), min-plus "
+                                 f"{minplus.launch_count()}")
+        total.update(counts)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(x).all()) for x in leaves(params)):
+        raise AssertionError(f"{arch} bf16 train steps: losses {losses} or "
+                             f"the new params not finite")
+    med = statistics.median(walls)
+    tokens = b * s
+    log(f"{cfg.name} bf16 train steps (depth {cfg.num_layers}, B={b} S={s}, "
+        f"remat): losses {[round(x, 4) for x in losses]}, finite; flash "
+        f"launches a step {want or 0}; step wall median {med:.2f} ms over "
+        f"{TRAIN_STEPS} (min {min(walls):.2f}, max {max(walls):.2f}), "
+        f"{tokens / med * 1e3:.0f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB on {smi}")
+    if profiler_works():
+        ps = TRAIN_PROFILE_S if cfg.sub_quadratic else s
+        batch = train_batches(cfg, b, ps, 1, dev)[0]
+        profile_device(f"one {cfg.name} train step (depth {cfg.num_layers}, "
+                       f"B={b}, S={ps}, bf16)",
+                       lambda: step(params, opt_state, batch), top=8)
+    return {"launches": dict(total), "step_ms": med, "peak_gib": peak / 2**30,
+            "tokens_per_s": tokens / med * 1e3, "losses": losses}
+
+
+def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
+    """Phase 19 on the bf16 weights phases 17-18 ``parked`` (cut to
+    ``train_depths``' ``depths``); returns the flash launches of each
+    train path, the bf16 CUDA-core backward's checks and times at
+    phi-3-vision's and MLA's shapes, and each family's step figures."""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as M
+    from repro_torch.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    out = {"launches": {}, "train": {}}
+    start = time.perf_counter()
+
+    def lap(what):
+        log(f"  [phase 19: {what} at {time.perf_counter() - start:.1f} s]")
+
+    # -- the bf16 CUDA-core backward at the train paths' head widths
+    out["bwd"] = {"phi3v": hold_and_time_bwd(rng, dev, *PHI3V_BWD, smi),
+                  "mla": hold_and_time_bwd(rng, dev, *MLA_SHAPE, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("the backward kernels held and timed")
+
+    # -- float32: the card against the CPU port, flash against xla
+    for arch in SMOKE_ARCHS:
+        res = smoke_card_vs_cpu(arch, rng, dev)
+        out["launches"][f"{arch} smoke float32 loss + grads"] = \
+            res["launches"]
+    name = registry.config("phi3_vision_4_2b").name
+    cfg32 = dataclasses.replace(registry.config("phi3_vision_4_2b"),
+                                num_layers=1, dtype=torch.float32,
+                                attn_impl="flash")
+    params = M.init_params(cfg32, torch.Generator().manual_seed(0),
+                           device=dev)
+    batch = smoke_train_batch(cfg32, rng, 1, 512)
+    counts, _ = flash_vs_xla_grads(f"{name} (full width, 1 layer, "
+                                   f"{cfg32.num_patches} patches + 512 "
+                                   f"tokens)", cfg32, params, batch, dev)
+    if counts != {"flash_fwd_lse/simt": 2, "flash_bwd_dq/simt": 1,
+                  "flash_bwd_dkv/simt": 1}:
+        raise AssertionError(f"{name} float32 loss + grads: launches {counts}")
+    out["launches"][f"{name} float32 loss + grads (1 layer)"] = counts
+    del params
+    lap("the float32 checks")
+
+    # -- bf16 train steps of five families, depth cut by the reckoning
+    for arch, unit, (b, s), variant in TRAIN_FAMILIES:
+        full = registry.config(arch)
+        depth, fits, over = depths[arch]
+        cfg = dataclasses.replace(full, num_layers=depth, attn_impl="flash")
+        need = (fits["state"] + fits["act"]) / 1e9
+        why = (f"the whole model; its reckoning {need:.1f} GB" if over is None
+               else f"{depth} of {full.num_layers} layers (in units of "
+               f"{unit}): {fits['params'] / 1e9:.3f} B params x 22 B + "
+               f"largest leaf {fits['largest'] / 1e9:.3f} B x 20 B + "
+               f"activations ~{fits['act'] / 1e9:.1f} GB = {need:.1f} GB; "
+               f"{depth + unit} layers would need "
+               f"{(over['state'] + over['act']) / 1e9:.1f} GB")
+        log(f"{full.name} bf16 train step: depth {why} (card "
+            f"{CARD_BYTES / 1e9:.0f} GB, {SPARE_BYTES / 1e9:.0f} GB kept "
+            f"spare)")
+        params = tree_map(lambda x: x.to(dev), parked.pop(arch))
+        if arch == "olmoe_1b_7b":
+            grad_compress_card_vs_cpu(
+                dataclasses.replace(cfg, num_layers=1),
+                cut_params(params, 1, dev),
+                train_batches(cfg, b, s, 1, dev)[0], dev)
+        res = train_family(arch, cfg, params, dev, smi, b, s,
+                           step_launches(variant, depth))
+        res.update(depth=depth, reckoning_gb=need)
+        out["train"][full.name] = res
+        out["launches"][f"{full.name} bf16 train steps"] = res["launches"]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"{full.name} trained")
+
+    # -- deepseek-v2 at full width, one layer: loss and gradients in bf16
+    full = dataclasses.replace(registry.config("deepseek_v2_236b"),
+                               num_layers=DEEPSEEK_LAYERS)
+    cfg = dataclasses.replace(full, attn_impl="flash")
+    params = tree_map(lambda x: x.to(dev), parked.pop("deepseek_v2_236b"))
+    batch = train_batches(cfg, 1, 2048, 1, dev)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_count()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, params, batch, dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = flash_variant_counts(flash)
+    peak = torch.cuda.max_memory_allocated()
+    want = step_launches("simt", DEEPSEEK_LAYERS)     # d 192 != dv 128
+    if counts != want:
+        raise AssertionError(f"deepseek-v2 bf16 loss + grads: launches "
+                             f"{counts}, expected {want}")
+    if not math.isfinite(float(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("deepseek-v2 bf16 loss or gradients not finite")
+    del grads
+    out["launches"]["deepseek-v2 bf16 loss + grads"] = counts
+    out["deepseek"] = {"ms": wall, "peak_gib": peak / 2**30}
+    log(f"deepseek-v2 (full width, {DEEPSEEK_LAYERS} layer, remat) bf16 loss "
+        f"+ grads B=1 S=2048: loss {float(loss):.4f}, finite gradients; "
+        f"launches {counts}; {wall:.2f} ms (the first call); peak device "
+        f"memory {peak / 2**30:.2f} GiB on {smi}")
+    if profiler_works():
+        profile_device("one deepseek-v2 loss + grads (1 layer, B=1, S=2048, "
+                       "bf16)", lambda: loss_and_grads(cfg, params, batch,
+                                                       dev), top=8)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("deepseek-v2's loss and gradients")
+
+    # -- train() on the smoke configs in float32: card == CPU, a restart
+    smoke = registry.smoke_config
+    registry.smoke_config = lambda arch: dataclasses.replace(
+        smoke(arch), dtype=torch.float32)
+    try:
+        kw = dict(preset="smoke", steps=TRAIN_STEPS, batch=2, seq=128,
+                  log_every=1000, lr=1e-3)
+        for arch in SMOKE_ARCHS:
+            card = train.train(arch, device=dev, **kw)
+            cpu = train.train(arch, device="cpu", **kw)
+            rel = max(abs(a - c) / abs(c) for a, c in
+                      zip(card.losses, cpu.losses, strict=True))
+            if len(card.losses) != TRAIN_STEPS or rel > 1e-5:
+                raise AssertionError(f"train('{arch}') card {card.losses} vs "
+                                     f"CPU {cpu.losses}")
+            log(f"train('{arch}', preset='smoke') float32, {TRAIN_STEPS} "
+                f"steps at B=2 S=128: card == CPU port, losses rel "
+                f"{rel:.1e} (tolerance 1e-5)")
+        with tempfile.TemporaryDirectory() as tmp:
+            kw.update(steps=4, ckpt_every=2)
+            whole = train.train("whisper_base", device=dev, **kw)
+            try:
+                train.train("whisper_base", device=dev, ckpt_dir=tmp,
+                            fail_at=3, **kw)
+            except RuntimeError as exc:
+                if "injected node failure" not in str(exc):
+                    raise
+            else:
+                raise AssertionError("the injected failure did not fire")
+            resumed = train.train("whisper_base", device=dev, ckpt_dir=tmp,
+                                  **kw)
+    finally:
+        registry.smoke_config = smoke
+    rel = max(abs(a - c) / abs(c) for a, c in
+              zip(resumed.losses, whole.losses[2:], strict=True))
+    if resumed.resumed_from != 2 or rel > 1e-5:
+        raise AssertionError(f"whisper restart: resumed from "
+                             f"{resumed.resumed_from}, losses "
+                             f"{resumed.losses} vs {whole.losses}")
+    log(f"train('whisper_base') float32 on the card, 4 steps, killed at step "
+        f"3 and resumed from step {resumed.resumed_from}: losses "
+        f"{resumed.losses} == the uninterrupted run's last two (rel "
+        f"{rel:.1e}, tolerance 1e-5)")
+
+    lap("the smoke train() runs")
+
+    # -- remat_policy="dots" against "full": smollm-135m, one bf16 step
+    full = registry.config("smollm_135m")
+    cfg = dataclasses.replace(full, attn_impl="flash")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = train_batches(cfg, 4, 2048, 1, dev)[0]
+    res = {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        opt = steps.default_optimizer(c)
+        step = steps.make_train_step(c, opt, device=dev)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_count()
+        loss, _, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        res[policy] = (float(loss), flash_variant_counts(flash),
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del state, step
+    want = step_launches("sm90", full.num_layers)
+    if res["dots"][:2] != res["full"][:2] or res["full"][1] != want:
+        raise AssertionError(f"remat_policy dots {res['dots']} vs full "
+                             f"{res['full']} (launches expected {want})")
+    log(f"smollm-135m bf16 train step B=4 S=2048, remat_policy='dots' vs "
+        f"'full': loss {res['dots'][0]:.6f} == {res['full'][0]:.6f}, "
+        f"launches {res['dots'][1]} == full's; peak device memory "
+        f"{res['dots'][2]:.2f} GiB (dots) vs {res['full'][2]:.2f} GiB (full)")
+    out["dots"] = res
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("remat 'dots'")
+    return out
+
+
 def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                catalog: dict, wide: dict, stack: dict, oracles: dict,
-               moe_mla: dict, families: dict) -> list[dict]:
+               moe_mla: dict, families: dict, trained: dict) -> list[dict]:
     """The kernels line.  The kernels on this run's newest paths report
     those paths' launches (phase 16's SA, exact and bounds solves for the
     closure kernel, the catalog's V = 48 solves for the product, the
-    olmoe-1b-7b prefills of phase 17 for the tensor-core forward and
-    phi-3-vision's prefills of phase 18 for the CUDA-core one); every
+    olmoe-1b-7b prefills of phase 17 for the tensor-core forward,
+    phi-3-vision's prefills of phase 18 for the CUDA-core one, and the
+    bf16 train steps of phase 19 for the four backward kernels); every
     path's count stands in "launches_by_path".  "timed_at" names the shape
     of the row's times; "also_timed" keeps the row's times at the shapes
     of earlier paths."""
@@ -2812,7 +3478,8 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
         for phase, runs, held in (
                 (17, moe_mla["launches"],
                  moe_mla["mla" if variant == "simt" else "olmoe"]),
-                (18, families["launches"], families.get("phi3v"))):
+                (18, families["launches"], families.get("phi3v")),
+                (19, trained["launches"], None)):
             mine = {what: counts.get(f"flash_fwd_lse/{variant}", 0)
                     for what, counts in runs.items()}
             mine = {what: n for what, n in mine.items() if n}
@@ -2827,6 +3494,41 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                        ms=held["ms"], plain_ms=held["plain_ms"],
                        bound_ms=held["bound"][0], bound_by=held["bound"][1],
                        library_ms=held["sdpa_ms"], timed_at=held["shape"])
+    # the backward kernels: phase 19's bf16 train paths give the launches;
+    # the CUDA-core rows their times at phi-3-vision's shape (MLA's and
+    # the smollm training shape's under "also_timed")
+    for row in flash_rows:
+        if not row["name"].startswith("flash_bwd"):
+            continue
+        entry = row["name"].removesuffix("_sm90")
+        variant = "sm90" if row["name"].endswith("_sm90") else "simt"
+        earlier = ("smollm-135m bf16 train steps (phase 11)" if variant ==
+                   "sm90" else "smollm-135m float32 loss + grads (phase 11)")
+        row["launches_by_path"] = {earlier: row["launches"]}
+        bf16 = 0
+        for what, counts in trained["launches"].items():
+            n = counts.get(f"{entry}/{variant}", 0)
+            if n:
+                row["launches_by_path"][f"{what} (phase 19)"] = n
+                bf16 += n if "bf16" in what else 0
+        if bf16:
+            row["launches"] = bf16
+        if variant == "simt":
+            row["also_timed"] = {row["timed_at"]: {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}}
+            for key in ("mla", "phi3v"):
+                held = trained["bwd"][key]
+                timed = {"ms": held["ms"][entry],
+                         "plain_ms": held["plain_ms"][entry],
+                         "bound_ms": held["bound"][entry][0],
+                         "library_ms": held["sdpa_ms"]}
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         held["err"][entry])
+                if key == "mla":
+                    row["also_timed"][held["shape"]] = timed
+                else:
+                    row.update(timed, bound_by=held["bound"][entry][1],
+                               timed_at=held["shape"])
     return minplus_rows + flash_rows
 
 
@@ -2867,27 +3569,43 @@ def main() -> int:
             count_tensor_core_sass(stem, lib)
     assert_no_spills("flash_bwd_dq_sm90", flash.build_log)
 
+    log(f"phase 1 took {time.perf_counter() - t_start:.1f} s")
+    t = time.perf_counter()
     minplus_rows = routing_phases(dev, smi)
+    log(f"phases 2-4 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     flash_entries = serving_phases(dev, smi)
+    log(f"phases 5-9 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     bwd_entries = training_phases(dev, smi)
+    log(f"phases 10-12 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     catalog = catalog_phase(dev, smi)
+    log(f"phase 13 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     wide = full_width_phase(dev, smi)
+    log(f"phase 14 took {time.perf_counter() - t:.1f} s")
     t15 = time.perf_counter()
     stack = serving_stack_phase(dev, smi)
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     t16 = time.perf_counter()
     oracles = oracles_phase(dev, smi)
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    depths = train_depths()
+    keep, parked = parking(depths)
     t17 = time.perf_counter()
-    moe_mla = moe_mla_phase(dev, smi)
+    moe_mla = moe_mla_phase(dev, smi, keep)
     log(f"phase 17 took {time.perf_counter() - t17:.1f} s")
     t18 = time.perf_counter()
-    families = families_phase(dev, smi)
+    families = families_phase(dev, smi, keep)
     log(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    trained = train_families_phase(dev, smi, parked, depths)
+    log(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
     rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
-                      wide, stack, oracles, moe_mla, families)
-    log(f"phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+                      wide, stack, oracles, moe_mla, families, trained)
+    log(f"phases 1-19 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,10 +9,12 @@ from the reference:
   * layouts at every function are the reference's: activations
     ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ w``.
 
-``remat_wrap`` is ``torch.utils.checkpoint`` for the ``"full"`` policy.
-``maybe_shard`` has no counterpart (sharding comes in a later slice), nor
-has the ``shard_map`` branch of ``_flash_bshd``: on one card the kernel
-always runs on the whole ``[B*H, S, hd]`` block.  Nothing on the training
+``remat_wrap`` is ``torch.utils.checkpoint``, with selective
+checkpointing for the ``"dots"`` policy.  ``maybe_shard`` has no
+counterpart (on one card nothing is sharded; the rules live in
+:mod:`repro_torch.distributed.sharding`), nor has the ``shard_map``
+branch of ``_flash_bshd``: on one card the kernel always runs on the
+whole ``[B*H, S, hd]`` block.  Nothing on the training
 path writes in place into a tensor that autograd saved; ``write_kv``'s
 in-place cache write serves decode only.
 
@@ -39,20 +41,41 @@ FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
 gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
 
+# the products without batch dimensions that the "dots" policy keeps
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy, the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    outputs of products without batch dimensions (``aten.mm``,
+    ``aten.addmm``: every ``x @ w``) are kept from the forward, and
+    everything else is recomputed in the backward -- ``bmm`` (the
+    experts' batched products, the einsums) and the flash forward, whose
+    ``autograd.Function`` launches its kernel again as under ``"full"``."""
+    if op in DOTS_SAVED:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_wrap(fn, cfg):
     """``fn`` recomputed in the backward instead of keeping its
-    activations (``jax.checkpoint`` in the reference), for
-    ``cfg.remat_policy == "full"``: ``torch.utils.checkpoint`` without
-    reentrance, so the recompute runs the same flash forward again.
-    The ``"dots"`` policy, which no config uses, raises."""
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (only 'full'); "
-            "ROADMAP Queue 1 item 10")
+    activations (``jax.checkpoint`` in the reference):
+    ``torch.utils.checkpoint`` without reentrance, so the recompute runs
+    the same flash forward again.  ``cfg.remat_policy == "dots"`` keeps
+    the products without batch dimensions (:func:`dots_policy`, through
+    selective checkpointing); any other policy recomputes everything, as
+    the reference's ``"full"``."""
+    extra = {}
+    if cfg.remat_policy == "dots":
+        extra["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            dots_policy)
 
     def wrapped(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False,
+                                                 **extra)
 
     return wrapped
 

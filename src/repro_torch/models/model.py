@@ -5,6 +5,7 @@ moe (dense, MoE and MLA blocks), vlm (the dense backbone behind a patch
 prefix), ssm (xLSTM), hybrid (Zamba2) and encdec (Whisper):
 
     init_params(cfg, generator, device=)          -> params dict
+    param_shapes(cfg)                             -> the same tree on "meta"
     prefill_logits(cfg, params, batch)            -> [B, S, vocab] float32
     loss_fn(cfg, params, batch)                   -> scalar float32 loss
     init_cache(cfg, batch, max_len, device=)      -> cache / state dict
@@ -36,9 +37,9 @@ class ModelConfig:
     ``dtype`` is a ``torch.dtype``.  On one card these fields are
     accepted and have no effect: ``dp_axes``, ``moe_ep_shard`` and
     ``moe_local_dispatch`` (sharding).  ``remat`` recomputes each block in
-    the backward (``torch.utils.checkpoint``); ``remat_policy`` takes
-    ``"full"`` only.  ``scan_layers=False`` computes the same function as
-    ``True``: both are a loop over the stacked layers here.
+    the backward (``torch.utils.checkpoint``); ``remat_policy`` is
+    ``"full"`` or ``"dots"``.  ``scan_layers=False`` computes the same
+    function as ``True``: both are a loop over the stacked layers here.
     """
 
     name: str
@@ -111,7 +112,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random params drawn from ``generator`` (a CPU generator; the same
     seed gives the same weights on every device), placed on ``device``."""
-    dev = resolve_device(device)
+    return _init(cfg, generator, resolve_device(device))
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The tree :func:`init_params` builds, as meta tensors: every leaf's
+    shape and dtype, no storage and no draw (the counterpart of
+    ``jax.eval_shape`` of the reference's ``init_params``; a full
+    deepseek-v2-236b tree costs a few seconds of host time)."""
+    meta = torch.device("meta")
+    with meta:
+        return _init(cfg, torch.Generator(), meta)
+
+
+def _init(cfg: ModelConfig, generator: torch.Generator,
+          dev: torch.device) -> dict:
     if cfg.family in ("dense", "moe", "vlm"):
         return transformer.init(generator, cfg, dev)
     if cfg.family == "ssm":

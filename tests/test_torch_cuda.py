@@ -6,9 +6,13 @@ window; SA on one draw tape, the exact solver and Lemma 8's bounds, with
 their closure launches), the olmoe and deepseek-v2 smoke prefills against
 the CPU port, the xLSTM, Zamba2, Whisper and phi-3-vision smoke models
 (prefill, decode with states, engine tokens, whisper's served plan)
-against the CPU port, and the flash-attention kernels
-(forward, dq, dk/dv, each on the CUDA cores and the tensor cores; the
-tensor-core tile products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
+against the CPU port, a float32 train step of each non-dense smoke
+config against the CPU port, ``grad_compress`` card == CPU bit for bit, a
+bf16 step under ``remat_policy="dots"`` against "full", and the
+flash-attention kernels (forward, dq, dk/dv, each on the CUDA cores and
+the tensor cores, the CUDA-core backward in bf16 at head widths 96 and
+192 -> 128; the tensor-core tile products alone) against their plain
+versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -317,7 +321,8 @@ def test_flash_launches_once_per_layer_per_prefill(cuda, no_tf32):
 
 
 # (bh, S, d, dv, dtype, causal): the training shape, d = dv and d != dv
-# (192 -> 128, the MLA widths), the widest head, ragged and short lengths
+# (192 -> 128, the MLA widths), the widest head, ragged and short lengths,
+# bf16 at head widths 96 and 192 -> 128
 BWD_CASES = [(36, 2048, 64, 64, torch.bfloat16, True),
              (4, 256, 64, 64, torch.float32, True),
              (2, 256, 192, 128, torch.float32, True),
@@ -325,7 +330,15 @@ BWD_CASES = [(36, 2048, 64, 64, torch.bfloat16, True),
              (2, 130, 32, 48, torch.float32, True),
              (3, 1000, 64, 64, torch.bfloat16, True),
              (1, 1, 16, 16, torch.float32, True),
-             (2, 300, 64, 32, torch.float32, False)]
+             (2, 300, 64, 32, torch.float32, False),
+             # bf16 at phi-3-vision's 96 and MLA's 192 -> 128 (the
+             # CUDA-core kernels): the train paths' shapes, and ragged
+             (32, 2624, 96, 96, torch.bfloat16, True),
+             (128, 2048, 192, 128, torch.bfloat16, True),
+             (4, 1000, 96, 96, torch.bfloat16, True),
+             (4, 1000, 192, 128, torch.bfloat16, True),
+             # olmoe-1b-7b's train step at B=4 (the tensor-core kernels)
+             (64, 2048, 128, 128, torch.bfloat16, True)]
 # gradients as (atol, rtol): float32 within 1e-4 + 1e-4 |want| (sums over
 # up to S terms in another order); bf16 within 1e-3 + 8e-3 |want| (at most
 # one bf16 rounding of the float32 result apart: one ulp <= 2^-7 |want|)
@@ -714,3 +727,133 @@ def test_whisper_serve_plan_on_card_matches_cpu(cuda):
     assert [(p.priority, p.bound_s, p.nodes_used) for p in plans] == \
         [(p.priority, p.bound_s, p.nodes_used) for p in cpu_plans]
     assert res.tokens.shape == cpu_res.tokens.shape == (2, 4)
+
+
+# -- every family's train step, grad_compress and remat "dots" on the card ---
+
+TRAIN_ARCHS = ["olmoe_1b_7b", "deepseek_v2_236b", "phi3_vision_4_2b",
+               "zamba2_2_7b", "xlstm_125m", "whisper_base"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_family_smoke_train_step_on_card_matches_cpu(cuda, no_tf32, arch):
+    """One float32 ``make_train_step`` step of each non-dense smoke config
+    (attn_impl="flash", remat) on the card against the CPU port on the
+    same weights and batch: the loss at 1e-5, every new param at 2e-5
+    (test_train_step_launches_the_flash_kernels' gates); per layer two
+    CUDA-core forwards, one dq and one dk/dv where the family takes flash
+    (S = 128 tokens, plus phi-3-vision's 8 patches), none elsewhere."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(registry.smoke_config(arch),
+                              dtype=torch.float32, attn_impl="flash",
+                              remat=True)
+    opt = AdamW(schedule=lambda s: 1e-3)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+    extra = np.random.default_rng(2).standard_normal(
+        (2, cfg.num_patches + cfg.num_frames, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+        batch = SyntheticStream(data, device=dev).batch_at(0)
+        if cfg.family in ("vlm", "encdec"):
+            batch["patches" if cfg.family == "vlm" else "frames"] = \
+                torch.from_numpy(extra).to(dev)
+        flash.reset_launch_count()
+        loss, params, _ = steps.make_train_step(cfg, opt, device=dev)(
+            params, opt.init(params), batch)
+        out[dev.type] = (loss, params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = cfg.num_layers if cfg.family in ("moe", "vlm") else 0
+            assert {(e, v): flash.launch_count(e, v) for e in flash.ENTRIES
+                    for v in flash.VARIANTS if flash.launch_count(e, v)} == (
+                {("flash_fwd_lse", "simt"): 2 * n,
+                 ("flash_bwd_dq", "simt"): n,
+                 ("flash_bwd_dkv", "simt"): n} if n else {})
+    _close(out["cuda"][0].cpu(), out["cpu"][0], 1e-5)
+    for (key, a), (_, b) in zip(pytree.items(out["cuda"][1]),
+                                pytree.items(out["cpu"][1])):
+        _close(a.cpu(), b, 2e-5)
+
+
+def test_grad_compress_on_card_matches_cpu(cuda):
+    """``Int8Compressor`` (two steps of error feedback: codes, scales,
+    residuals, decompressed values) and ``topk_mask`` on a tree of bf16
+    and float32 leaves, with a zero leaf and ties: card == CPU bit for bit
+    (every operation is one IEEE-rounded float32 operation; the divisions
+    are true divisions by a device tensor)."""
+    from repro_torch import pytree
+    from repro_torch.optim.grad_compress import Int8Compressor, topk_mask
+
+    def tree(step):
+        r = np.random.default_rng(step)
+        return {"w": torch.from_numpy(r.standard_normal((64, 96)).astype(
+                    np.float32) * 1e-3).to(torch.bfloat16),
+                "b": {"x": torch.from_numpy(r.standard_normal(1000).astype(
+                          np.float32)),
+                      "zero": torch.zeros(7, 5)},
+                "ties": torch.from_numpy(r.choice(
+                    np.float32([-1.0, 0.5, 1.0]), (33,)))}
+
+    comp = Int8Compressor()
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        state, seen = None, []
+        for step in range(2):
+            g = pytree.tree_map(lambda x: x.to(dev), tree(step))
+            state = comp.init(g) if state is None else state
+            codes, state = comp.compress(g, state)
+            seen += [x for qs in pytree.leaves(codes) for x in qs]
+            seen += pytree.leaves(state) + pytree.leaves(
+                comp.decompress(codes))
+            seen += [topk_mask(x, f) for x in pytree.leaves(g)
+                     for f in (0.01, 0.3)]
+        got[dev.type] = [x.cpu() for x in seen]
+    assert len(got["cuda"]) == len(got["cpu"])
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_remat_policy_dots_on_card(cuda):
+    """A bf16 train step under ``remat_policy="dots"`` at head_dim 64: the
+    loss and the tensor-core launches equal the "full" step's."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(registry.smoke_config("smollm_135m"),
+                              d_model=128, num_heads=2, num_kv_heads=1,
+                              head_dim=64, dtype=torch.bfloat16,
+                              attn_impl="flash", remat=True)
+    opt = AdamW(schedule=lambda s: 1e-3)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    batch = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                       global_batch=2),
+                            device=cuda).batch_at(0)
+    res = {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        flash.reset_launch_count()
+        loss, _, _ = steps.make_train_step(c, opt, device=cuda)(
+            params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        res[policy] = (float(loss), {(e, v): flash.launch_count(e, v)
+                                     for e in flash.ENTRIES
+                                     for v in flash.VARIANTS})
+    assert res["dots"] == res["full"]
+    n = cfg.num_layers
+    assert res["dots"][1][("flash_fwd_lse", "sm90")] == 2 * n
+    assert res["dots"][1][("flash_bwd_dq", "sm90")] == n

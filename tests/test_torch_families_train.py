@@ -82,3 +82,39 @@ def test_train_matches_reference(arch, monkeypatch):
     got = ttrain.train(arch, device="cpu", **kw)
     assert len(got.losses) == 3
     np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+
+
+def test_zero_patches_overflow_the_gradients_at_depth_in_both():
+    """``train()``'s zero patches leave every patch row's residual stream
+    exactly 0 in every layer, so each RMSNorm backward multiplies those
+    rows' gradient by rsqrt(1e-6) = 1000: at 19 layers it overflows, and
+    0 x inf makes weight gradients NaN -- in the reference and in the port
+    alike, for the same leaves (why the card's phi-3-vision train steps
+    take standard-normal patches)."""
+    fields = dict(dtype=jnp.float32, num_layers=19)
+    jcfg = dataclasses.replace(jreg.smoke_config("phi3_vision_4_2b"),
+                               **fields)
+    tcfg = dataclasses.replace(treg.smoke_config("phi3_vision_4_2b"),
+                               **{**fields, "dtype": torch.float32})
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                           tcfg, device="cpu")
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (1, S))
+    batch = {"tokens": toks.astype(np.int32),
+             "labels": np.roll(toks, -1, axis=1).astype(np.int32),
+             "patches": np.zeros((1, jcfg.num_patches, jcfg.d_model),
+                                 np.float32)}
+    _, want = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, _jax(batch))))(jparams)
+    flat = [p.requires_grad_() for p in pytree.leaves(tparams)]
+    tbatch = _torch(batch)
+    tbatch["labels"] = tbatch["labels"].long()
+    loss = TM.loss_fn(tcfg, pytree.unflatten(tparams, flat), tbatch)
+    grads = torch.autograd.grad(loss, flat)
+    bad_ref = {"/".join(str(k.key) for k in path) for path, g in
+               jax.tree_util.tree_flatten_with_path(want)[0]
+               if not np.isfinite(np.asarray(g)).all()}
+    bad_port = {key for (key, _), g in zip(pytree.items(tparams), grads)
+                if not bool(torch.isfinite(g).all())}
+    assert bad_ref and bad_port == bad_ref
+    assert np.isfinite(loss.item())

@@ -40,6 +40,9 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.models.moe, repro_torch.models.mla\n"
             "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
             "import repro_torch.models.encdec\n"
+            "import repro_torch.optim.grad_compress\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.launch.mesh\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
@@ -73,7 +76,7 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from repro_torch.core import Plan, jobs, network
     from repro_torch.core.completions import CommittedWork
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
-    from repro_torch.launch import route, serve, steps, train
+    from repro_torch.launch import mesh, route, serve, steps, train
     from repro_torch.models import model
     from repro_torch.scenarios import make_scenario
     from repro_torch.serving.engine import DecodeEngine
@@ -122,6 +125,7 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: SyntheticStream(DataConfig(vocab_size=8, seq_len=4,
                                            global_batch=1)),
         lambda: ckpt.place({}),
+        lambda: mesh.make_debug_mesh(1, 1),
         lambda: interop.adamw_state_from_numpy(
             {"m": {}, "v": {}, "step": 0}, device="cuda"),
     ]

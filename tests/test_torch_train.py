@@ -138,19 +138,87 @@ def test_adamw_state_and_params_cross_back_to_the_reference():
         float(JM.loss_fn(jcfg, jparams, jdata.batch_at(2))), rtol=1e-5)
 
 
-def test_remat_policy_dots_is_refused():
-    cfg = dataclasses.replace(treg.smoke_config("smollm_135m"),
-                              remat=True, remat_policy="dots")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dots"):
-        TM.loss_fn(cfg, pytree.tree_map(lambda x: x.requires_grad_(),
-                                        params),
-                   {"tokens": toks, "labels": toks})
-    with torch.no_grad():       # nothing to recompute: the blocks run plainly
-        assert TM.prefill_logits(cfg, params, {"tokens": toks}).shape == \
-            (1, 8, cfg.padded_vocab)
+def _loss_and_grads(cfg, params, batch):
+    flat = [p.detach().requires_grad_() for p in pytree.leaves(params)]
+    loss = TM.loss_fn(cfg, pytree.unflatten(params, flat), batch)
+    return loss, pytree.unflatten(params, list(torch.autograd.grad(loss,
+                                                                   flat)))
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_remat_policy_dots_matches_reference_and_full(attn_impl):
+    """``remat_policy="dots"`` (no config uses it): the loss and every
+    gradient leaf against the reference's ``"dots"`` and against the
+    port's own ``"full"``, at GRAD_TOL."""
+    jcfg, jparams, tcfg, tparams = _pair(attn_impl, True)
+    jcfg = dataclasses.replace(jcfg, remat_policy="dots")
+    dots = dataclasses.replace(tcfg, remat_policy="dots")
+    jdata, tdata = _streams(jcfg)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, jdata.batch_at(0))))(jparams)
+    loss, grads = _loss_and_grads(dots, tparams, tdata.batch_at(0))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    _assert_trees_close(grads, want_grads, GRAD_TOL, f"dots {attn_impl}")
+    full_loss, full_grads = _loss_and_grads(tcfg, tparams, tdata.batch_at(0))
+    np.testing.assert_allclose(loss.item(), full_loss.item(), rtol=1e-5)
+    for key, g in pytree.items(full_grads):
+        np.testing.assert_allclose(dict(pytree.items(grads))[key].numpy(),
+                                   g.numpy(), err_msg=key, **GRAD_TOL)
+
+
+def test_remat_policy_dots_keeps_the_products(monkeypatch):
+    """The selective-checkpoint policy is consulted, keeps every ``aten.mm``
+    / ``aten.addmm`` output of the forward (MUST_SAVE) and recomputes the
+    rest; so the backward under ``"dots"`` runs no product of the forward
+    again: its ``aten.mm`` are the two gradient products of each forward
+    one, while ``"full"`` also recomputes six of each block's seven
+    (q, k, v, o, gate, up; the recompute stops before ``w_down``, whose
+    output no gradient needs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch.models import common
+    _, _, tcfg, tparams = _pair("xla", True)
+    batch = _streams(tcfg)[1].batch_at(0)
+    calls = []
+    policy = common.dots_policy
+
+    def spy(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        calls.append((op, out))
+        return out
+
+    monkeypatch.setattr(common, "dots_policy", spy)
+
+    class CountMM(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountMM.n += func in common.DOTS_SAVED
+            return func(*args, **(kwargs or {}))
+
+    def mms(cfg):
+        """(aten.mm of the forward, of the backward)."""
+        flat = [p.detach().requires_grad_() for p in pytree.leaves(tparams)]
+        CountMM.n = 0
+        with CountMM():
+            loss = TM.loss_fn(cfg, pytree.unflatten(tparams, flat), batch)
+        fwd, CountMM.n = CountMM.n, 0
+        with CountMM():
+            torch.autograd.grad(loss, flat)
+        return fwd, CountMM.n
+
+    full_fwd, full = mms(tcfg)
+    assert not calls                      # "full" consults no policy
+    fwd, dots = mms(dataclasses.replace(tcfg, remat_policy="dots"))
+    saved = [out for op, out in calls if op in common.DOTS_SAVED]
+    # seven projections a block: q, k, v, o, gate, up, down
+    assert len(saved) == 7 * tcfg.num_layers
+    assert all(out == CheckpointPolicy.MUST_SAVE for out in saved)
+    assert any(out == CheckpointPolicy.PREFER_RECOMPUTE for _, out in calls)
+    assert fwd == full_fwd == 7 * tcfg.num_layers + 1     # + the unembed
+    assert dots == 2 * fwd
+    assert full - dots == 6 * tcfg.num_layers
 
 
 def test_loss_masks_negative_labels():
