@@ -193,7 +193,17 @@ Phases, each of which fails the run by exception:
      layer's bf16 loss and gradients (B=1 S=2048); the six
      smoke ``train()`` runs in float32 card == CPU, whisper-base's killed
      and resumed; smollm-135m's bf16 step under ``remat_policy="dots"``
-     against "full" (loss and launches equal, peak memory).
+     against "full" (loss and launches equal, peak memory);
+ 20. the production-mesh dry-run (``launch/dryrun.py``): every (arch x
+     shape x mesh) cell's record without a process group, each ``ok`` or
+     ``skip``; olmo-1b's ``train_4k`` and ``prefill_32k`` steps on the
+     256-chip mesh run over DTensors on a fake process group, each
+     ``ok`` with its collectives counted; rank 0's local shards of the
+     params, AdamW's m / v and the batch of smollm-135m and olmoe-1b-7b
+     at ``train_4k``, and of smollm-135m's params, batch and cache at
+     ``decode_32k``, made on the card, their storage bytes equal to the
+     record's ``memory.argument_bytes``; the port's lint over the
+     shipped tree, 0 violations.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -3429,6 +3439,84 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     return out
 
 
+# -- phase 20: the production-mesh dry-run and the lint -----------------------
+
+# the cells whose steps run over DTensors on the fake 256-chip group
+AUDIT_CELLS = (("olmo_1b", "train_4k"), ("olmo_1b", "prefill_32k"))
+# the cells whose rank-0 shards are made on the card
+SHARD_CELLS = (("smollm_135m", "train_4k"), ("olmoe_1b_7b", "train_4k"),
+               ("smollm_135m", "decode_32k"))
+
+
+def dryrun_phase(dev) -> None:
+    """Phase 20: the dry-run's records over the grid, the collective audit
+    of ``AUDIT_CELLS``, the card's bytes for rank 0's shards of
+    ``SHARD_CELLS`` against the records, and the lint."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.pytree import leaves
+
+    t = time.perf_counter()
+    records = {}
+    for arch in registry.ARCH_IDS:
+        for shape in SHAPES:
+            for multi in (False, True):
+                rec = dryrun.run_cell(arch, shape, multi)
+                if rec["status"] not in ("ok", "skip"):
+                    raise AssertionError(f"dry-run {arch} {shape}: {rec}")
+                records[arch, shape, multi] = rec
+    n_ok = sum(r["status"] == "ok" for r in records.values())
+    log(f"phase 20: {len(records)} cells, {n_ok} ok, "
+        f"{len(records) - n_ok} skip, in {time.perf_counter() - t:.1f} s")
+
+    for arch, shape in AUDIT_CELLS:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, collectives=True)
+        coll = rec["collectives"]
+        if rec["status"] != "ok" or not coll["per_op"]:
+            raise AssertionError(f"collective audit {arch} {shape}: {rec}")
+        per_op = {op: (d["count"], d["bytes"])
+                  for op, d in sorted(coll["per_op"].items())}
+        log(f"phase 20: {arch} {shape} pod16x16 collectives (count, bytes "
+            f"a device) {per_op}; total {coll['total_bytes']} B, effective "
+            f"{coll['effective_bytes']:.6g} B; audit {rec['audit_s']:.1f} s "
+            f"({time.perf_counter() - t:.1f} s with the specs)")
+
+    mesh = dryrun.make_production_mesh()
+    for arch, shape in SHARD_CELLS:
+        spec = SHAPES[shape]
+        cfg = dryrun.cell_config(arch, {})
+        args = dryrun.cell_args(arch, cfg, spec, mesh)
+        before = torch.cuda.memory_allocated()
+        shards = [torch.empty(dryrun.local_shape(x.shape, s, mesh),
+                              dtype=x.dtype, device=dev)
+                  for name in args.trees
+                  for x, s in zip(leaves(args.trees[name]),
+                                  leaves(args.specs[name]))]
+        got = sum(x.untyped_storage().nbytes() for x in shards)
+        want = records[arch, shape, False]["memory"]["argument_bytes"]
+        log(f"phase 20: {arch} {shape} pod16x16 rank-0 shards "
+            f"({', '.join(args.trees)}): {got} B made on the card, record "
+            f"{want} B; torch.cuda.memory_allocated() "
+            f"{torch.cuda.memory_allocated() - before} B above the "
+            f"{before} B before")
+        if got != want:
+            raise AssertionError(f"{arch} {shape}: {got} != {want}")
+        del shards
+        torch.cuda.empty_cache()
+
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "src/", "tests/",
+         "benchmarks/", "chip_smoke.py", "--strict"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    log(f"phase 20: {lint.stdout.strip().splitlines()[-1]}")
+    if lint.returncode != 0 or "0 violations" not in lint.stdout:
+        raise AssertionError(lint.stdout + lint.stderr)
+
+
 def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                catalog: dict, wide: dict, stack: dict, oracles: dict,
                moe_mla: dict, families: dict, trained: dict) -> list[dict]:
@@ -3602,10 +3690,13 @@ def main() -> int:
     t19 = time.perf_counter()
     trained = train_families_phase(dev, smi, parked, depths)
     log(f"phase 19 took {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    dryrun_phase(dev)
+    log(f"phase 20 took {time.perf_counter() - t20:.1f} s")
 
     rows = merge_rows(minplus_rows, flash_entries + bwd_entries, catalog,
                       wide, stack, oracles, moe_mla, families, trained)
-    log(f"phases 1-19 took {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 1-20 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

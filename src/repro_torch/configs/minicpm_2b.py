@@ -1,4 +1,5 @@
 """minicpm-2b [dense]: 40L d2304 36H (kv=36) d_ff=5760 vocab=122753; WSD schedule (llama-like arch) [arXiv:2404.06395; hf]"""
+from repro_torch.configs import _lm_common
 from repro_torch.costs import lm as lm_costs
 from repro_torch.models.model import ModelConfig
 
@@ -9,6 +10,10 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return ModelConfig(name='minicpm-2b-smoke', family='dense', num_layers=2, d_model=72, num_heads=6, num_kv_heads=6, d_ff=144, vocab_size=512, remat=False)
+
+
+def input_specs(spec, cfg=None):
+    return _lm_common.input_specs(cfg or config(), spec)
 
 
 def cost_profile(cfg=None, *, seq_len=2048, batch=1):

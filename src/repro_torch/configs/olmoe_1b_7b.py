@@ -1,4 +1,5 @@
 """olmoe-1b-7b [moe]: 16L d2048 16H (kv=16), 64 experts top-8, expert d_ff=1024, vocab=50304 [arXiv:2409.02060; hf]"""
+from repro_torch.configs import _lm_common
 from repro_torch.costs import lm as lm_costs
 from repro_torch.models.model import ModelConfig
 
@@ -9,6 +10,10 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return ModelConfig(name='olmoe-1b-7b-smoke', family='moe', num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=64, vocab_size=512, moe_num_experts=8, moe_top_k=2, moe_d_ff=64, remat=False)
+
+
+def input_specs(spec, cfg=None):
+    return _lm_common.input_specs(cfg or config(), spec)
 
 
 def cost_profile(cfg=None, *, seq_len=2048, batch=1):

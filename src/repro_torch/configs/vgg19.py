@@ -9,6 +9,10 @@ def config():
     return {"name": "vgg19", "kind": "convnet", "input": (224, 224, 3)}
 
 
+def smoke_config():
+    return config()
+
+
 def cost_profile(*, batch: int = 1):
     return vgg19_profile(batch=batch)
 

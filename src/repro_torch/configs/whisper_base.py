@@ -1,4 +1,5 @@
 """whisper-base [audio]: 6L enc + 6L dec, d512 8H d_ff=2048 vocab=51865; conv frontend is a stub (precomputed frame embeddings) [arXiv:2212.04356]"""
+from repro_torch.configs import _lm_common
 from repro_torch.costs import lm as lm_costs
 from repro_torch.models.model import ModelConfig
 
@@ -9,6 +10,10 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return ModelConfig(name='whisper-base-smoke', family='encdec', num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=512, dec_layers=2, num_frames=16, norm='layernorm', remat=False)
+
+
+def input_specs(spec, cfg=None):
+    return _lm_common.input_specs(cfg or config(), spec)
 
 
 def cost_profile(cfg=None, *, seq_len=2048, batch=1):

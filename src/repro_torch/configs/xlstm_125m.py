@@ -1,4 +1,5 @@
 """xlstm-125m [ssm]: 12L d768 4H vocab=50304; alternating sLSTM + mLSTM blocks [arXiv:2405.04517]"""
+from repro_torch.configs import _lm_common
 from repro_torch.costs import lm as lm_costs
 from repro_torch.models.model import ModelConfig
 
@@ -9,6 +10,10 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return ModelConfig(name='xlstm-125m-smoke', family='ssm', num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=512, remat=False)
+
+
+def input_specs(spec, cfg=None):
+    return _lm_common.input_specs(cfg or config(), spec)
 
 
 def cost_profile(cfg=None, *, seq_len=2048, batch=1):

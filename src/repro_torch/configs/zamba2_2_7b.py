@@ -1,4 +1,5 @@
 """zamba2-2.7b [hybrid]: 54 Mamba2 layers d2560 + shared attention block every 6 (32H kv=32, d_ff=10240), ssm_state=64, vocab=32000 [arXiv:2411.15242; hf]"""
+from repro_torch.configs import _lm_common
 from repro_torch.costs import lm as lm_costs
 from repro_torch.models.model import ModelConfig
 
@@ -9,6 +10,10 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return ModelConfig(name='zamba2-smoke', family='hybrid', num_layers=4, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=512, ssm_state=8, mamba_headdim=32, attn_every=2, remat=False)
+
+
+def input_specs(spec, cfg=None):
+    return _lm_common.input_specs(cfg or config(), spec)
 
 
 def cost_profile(cfg=None, *, seq_len=2048, batch=1):

@@ -3,7 +3,8 @@
 # (simulated annealing), the exact oracles and Theorem 2's bounds, the
 # event-driven simulator with both event engines, the committed-work
 # ledger and the arrival processes.  Min-plus closures go through the CUDA kernel of
-# repro_torch.kernels on the GPU.
+# repro_torch.kernels on the GPU.  The reference's deprecated alias
+# ``GreedySolution`` (of ``Plan``) is left out on purpose.
 from .network import (ComputeNetwork, INF, make_network, small_topology,
                       us_backbone)
 from .state import (QueueState, Topology, advance, backlog_seconds,

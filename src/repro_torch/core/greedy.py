@@ -23,7 +23,10 @@ commit) and :func:`_greedy_lazy` the lazy greedy.
 ``plan.meta`` reports the port's own counts: ``rounds``,
 ``kernel_launches`` (min-plus kernel launches during the solve; 0 on the
 CPU, where the plain version runs) and ``n_routings`` (single-job DPs run);
-``solvers.solve`` adds ``closure_builds``.
+``solvers.solve`` adds ``closure_builds``.  The reference's jit-dispatch
+counters ``fused_dispatch_count`` / ``reset_fused_dispatch_count`` are left
+out on purpose: the port counts kernel launches
+(:func:`repro_torch.kernels.minplus.launch_count`) instead.
 """
 from __future__ import annotations
 

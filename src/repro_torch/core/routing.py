@@ -313,3 +313,30 @@ def extract_paths(net: ComputeNetwork, comp, data, src, dst, num_layers,
     hops = _layer_hops(net, data_t, int(src), int(dst), int(num_layers),
                        _np(assign).astype(np.int32), closures)
     return hops_to_paths(hops, int(num_layers))
+
+
+def extract_paths_ref(net: ComputeNetwork, comp, data, src, dst, num_layers,
+                      assign):
+    """Reference per-hop host loop (seed implementation) for parity tests."""
+    v = net.num_nodes
+    data_t = torch.as_tensor(data, dtype=torch.float32, device=net.device)
+    w = _np(layer_edge_weights(net, data_t))
+    t = _np(transfer_closure(net, data_t))
+    assign = _np(assign)
+    L = int(num_layers)
+    nodes = [int(src)] + [int(assign[l]) for l in range(L)] + [int(dst)]
+    paths = []
+    for l in range(L + 1):
+        a, b = nodes[l], nodes[l + 1]
+        hops = []
+        cur = a
+        for _ in range(v):
+            if cur == b:
+                break
+            cand = w[l][cur] + t[l][:, b]
+            cand[cur] = np.inf  # never take the zero-cost self-loop
+            nxt = int(np.argmin(cand))
+            hops.append((cur, nxt))
+            cur = nxt
+        paths.append(hops)
+    return paths

@@ -1,0 +1,3 @@
+from . import convnets, lm
+
+__all__ = ["convnets", "lm"]

@@ -30,6 +30,9 @@ or raises.
 Unlike the reference, every sequence length S >= 1 is exact: the reference
 tiles S by ``min(512, S)`` and leaves the rows past ``(S // 512) * 512``
 unwritten when 512 does not divide S, in the forward and the backward.
+The reference's ``NEG_INF`` is left out on purpose here: the masked-score
+value is :data:`repro_torch.kernels.ref.NEG_INF` and ``kNegInf`` in the
+sources.
 """
 from __future__ import annotations
 

@@ -21,7 +21,9 @@ CPU tensors they run the plain version
 they launch the kernel or raise.  A failed build or launch raises; there
 is no fallback to the plain version.  :func:`closure_variant` is the rule
 by which ``ops.minplus_closure`` picks the closure kernel or the loop of
-products.
+products.  The reference's Pallas entry points ``minplus_matmul_pallas``
+and ``minplus_matmul_pallas_batched`` are left out on purpose: these two
+wrappers take their place.
 """
 from __future__ import annotations
 

@@ -9,6 +9,13 @@ kernels (:func:`repro_torch.kernels.minplus.minplus_matmul_batched`,
 :func:`repro_torch.kernels.flash.flash_fwd_lse`,
 :func:`repro_torch.kernels.flash.flash_bwd`), whatever its size; a CPU
 tensor takes the kernel's plain version inside those wrappers.
+``minplus_matvec`` is the reference's plain matvec, as there.
+
+Left out on purpose: the reference's jit-dispatch counters and decision
+function (``dispatch_counts``, ``reset_dispatch_counts``,
+``minplus_dispatch``).  Nothing here is traced; launches are counted by
+:func:`repro_torch.kernels.minplus.launch_count` and
+:func:`repro_torch.kernels.flash.launch_count`.
 """
 from __future__ import annotations
 
@@ -32,6 +39,10 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b3 = b.expand(lead + tuple(b.shape[-2:])).reshape(-1, b.shape[-2], n)
     out = minplus_matmul_batched(a3, b3.contiguous())
     return out.reshape(lead + (m, n))
+
+
+def minplus_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return ref.minplus_matvec_ref(a, x)
 
 
 def minplus_closure(w: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
 from repro_torch.models import model as M
 from repro_torch.optim import schedules
 from repro_torch.optim.adamw import AdamW
@@ -44,7 +45,8 @@ def make_train_step(cfg, opt: AdamW | None = None, *,
     the gradient of :func:`repro_torch.models.model.loss_fn` by autograd
     (through the flash backward kernels when ``cfg.attn_impl == "flash"``),
     then one :class:`AdamW` step.  The params and state passed in are left
-    as they were; the returned ones are new tensors."""
+    as they were; the returned ones are new tensors.  On ``DTensor``
+    params each gradient is first laid out as its param (:func:`_sync`)."""
     dev = resolve_device(device)
     opt = opt or default_optimizer(cfg)
 
@@ -55,12 +57,24 @@ def make_train_step(cfg, opt: AdamW | None = None, *,
         # norm); their gradient is 0, as the reference's
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)
+        grads = [_sync(g, p) for g, p in zip(grads, flat)]
         params, opt_state, _ = opt.apply(unflatten(params, flat),
                                          unflatten(params, list(grads)),
                                          opt_state)
         return loss.detach(), params, opt_state
 
     return train_step
+
+
+def _sync(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """The gradient sync: the identity on a plain tensor; on a
+    ``DTensor``, the gradient's partial sums reduced once into its param's
+    placements (an all-reduce where the param is replicated, a
+    reduce-scatter where it is sharded), so that no optimizer op reduces
+    them again."""
+    if not cm.is_dtensor(grad):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
 
 
 def make_prefill_step(cfg, *, device: str | torch.device = "cuda"):

@@ -10,11 +10,14 @@ from the reference:
     ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ w``.
 
 ``remat_wrap`` is ``torch.utils.checkpoint``, with selective
-checkpointing for the ``"dots"`` policy.  ``maybe_shard`` has no
-counterpart (on one card nothing is sharded; the rules live in
-:mod:`repro_torch.distributed.sharding`), nor has the ``shard_map``
-branch of ``_flash_bshd``: on one card the kernel always runs on the
-whole ``[B*H, S, hd]`` block.  Nothing on the training
+checkpointing for the ``"dots"`` policy.  :func:`maybe_shard` is the
+identity on a plain tensor and a ``redistribute`` on a ``DTensor`` (the
+production-mesh audit of :mod:`repro_torch.launch.dryrun`).  The
+``shard_map`` branch of ``_flash_bshd`` has no counterpart: on one card
+the kernel always runs on the whole ``[B*H, S, hd]`` block.  Left out on
+purpose: ``DP`` and ``TP`` (the axes are ``cfg.dp_axes`` and
+:data:`repro_torch.distributed.sharding.TP`) and ``get_abstract_mesh``
+(a ``DTensor`` carries its own mesh).  Nothing on the training
 path writes in place into a tensor that autograd saved; ``write_kv``'s
 in-place cache write serves decode only.
 
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import functools
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +60,39 @@ def dots_policy(ctx, op, *args, **kwargs):
     if op in DOTS_SAVED:
         return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
     return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a ``torch.distributed.tensor.DTensor``?  False, without
+    the import, while nothing has imported that module (then no tensor
+    can be one, and the plain path does not pay for the import)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def maybe_shard(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Activation-sharding anchor: lay ``x`` out as ``PartitionSpec(*axes)``.
+
+    The identity on a plain tensor.  On a ``DTensor`` it is a
+    ``redistribute`` over the tensor's own mesh, as the reference's
+    ``with_sharding_constraint``: a dim whose named axes (those the mesh
+    has) divide it is sharded over them, every other mesh axis is
+    replicated.
+    """
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    placements = [Replicate()] * mesh.ndim
+    for i, a in enumerate(axes):
+        parts = [names.index(p) for p in
+                 (a if isinstance(a, tuple) else (a,)) if p in names]
+        if parts and x.shape[i] % math.prod(
+                mesh.size(m) for m in parts) == 0:
+            for m in parts:
+                placements[m] = Shard(i)
+    return x.redistribute(mesh, placements)
 
 
 def remat_wrap(fn, cfg):
@@ -194,8 +231,11 @@ def _sdpa(q, k, v, mask, *, grouped: bool = False) -> torch.Tensor:
     for no mask.
 
     ``grouped=True`` contracts GQA with a grouped einsum instead of
-    repeating K/V per head; the function is the same.
+    repeating K/V per head; the function is the same.  On DTensors it runs
+    :func:`_sdpa_local`.
     """
+    if is_dtensor(q):
+        return _sdpa_local(q, k, v, mask, grouped=grouped)
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     rep = h // hkv
@@ -217,6 +257,53 @@ def _sdpa(q, k, v, mask, *, grouped: bool = False) -> torch.Tensor:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _sdpa_local(q, k, v, mask, *, grouped: bool) -> torch.Tensor:
+    """:func:`_sdpa` of DTensors, run on each rank's own batch rows and
+    heads, as the reference's partitioner runs it (and its ``shard_map``
+    the flash kernel): q, k and v are laid out with the largest one's
+    shards of dims 0 (batch) and 2 (heads) (q's on a tie; a decode
+    step's cache otherwise) and every other mesh axis replicated (K/V
+    heads repeated first where they do not divide as the heads are
+    split), the mask (a plain tensor) applies whole, and the result has
+    that layout.  The scores' einsum would otherwise merge two sharded
+    dims into one, which ``DTensor`` does not do in every version."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    lead = max((q, k, v), key=lambda t: t.numel())
+    place = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                  else Replicate() for p in lead.placements)
+    head_shards = math.prod(mesh.size(m) for m, p in enumerate(place)
+                            if p == Shard(2))
+    b, t, hkv, _ = k.shape
+    rep = q.shape[2] // hkv
+    if rep > 1 and hkv % head_shards:
+        k, v = (x[:, :, :, None].expand(b, t, hkv, rep, x.shape[-1])
+                .reshape(b, t, hkv * rep, x.shape[-1]) for x in (k, v))
+    for x in (q, k, v):
+        for m, p in enumerate(place):
+            if isinstance(p, Shard) and x.shape[p.dim] % mesh.size(m):
+                raise ValueError(f"dim {p.dim} of {tuple(x.shape)} does "
+                                 f"not divide over mesh axis {m}")
+    q, k, v = (_ContiguousGrad.apply(x.redistribute(mesh, place).to_local())
+               for x in (q, k, v))
+    out = _sdpa(q, k, v, mask, grouped=grouped)
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: the
+    einsums' backward leaves a local shard's gradient transposed, and
+    ``DTensor`` then views it, which a transposed shard refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def _sdpa_chunked(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
@@ -372,6 +459,15 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(tokens):
+        # the same gather, through the op DTensor has a layout rule for
+        # (its rule for the indexing's backward is not in every version);
+        # a vocab-parallel table's partial rows are summed here, as the
+        # reference's partitioner sums them
+        from torch.distributed.tensor import Replicate
+        out = F.embedding(tokens, params["tok"])
+        return out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
     return params["tok"][tokens]
 
 

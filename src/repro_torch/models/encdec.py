@@ -77,6 +77,7 @@ def encode(cfg, params, frames: torch.Tensor, *,
     b, t, d = frames.shape
     h = frames.to(cfg.dtype) + \
         _sinusoid(t, d, frames.device).to(cfg.dtype)[None]
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
 
     def body(h, p):
         x = cm.apply_norm(p["ln1"], h, "layernorm")
@@ -116,6 +117,7 @@ def decode(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor, *,
     s = tokens.shape[1]
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
     h = h + _sinusoid(s, cfg.d_model, h.device).to(cfg.dtype)[None]
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     positions = torch.arange(s, device=h.device)[None, :]
 
     def body(h, p):
@@ -146,6 +148,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos: int,
     updated in place.  The position embedding is row ``pos`` of a
     sinusoid as long as the cache."""
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     table = _sinusoid(cache["k"].shape[2], cfg.d_model, h.device)
     h = h + table[pos:pos + 1].to(cfg.dtype)[None]
     positions = torch.full((1, 1), pos, dtype=torch.long, device=h.device)

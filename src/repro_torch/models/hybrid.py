@@ -62,6 +62,7 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     ``remat`` and autograd recording, each Mamba2 layer is recomputed in
     the backward, as the reference wraps its layer body."""
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
 
     def layer_body(h_seq, p):
@@ -94,6 +95,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos: int):
     """tokens: [B, 1] -> (float32 logits of the last position [B, vocab],
     cache), the cache updated in place."""
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)       # [B, 1, D]
+    x = cm.maybe_shard(x, cfg.dp_axes, None, None)
     positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
     for i in range(cfg.num_layers):
         g, r = divmod(i, cfg.attn_every)

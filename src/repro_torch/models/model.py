@@ -36,7 +36,9 @@ class ModelConfig:
 
     ``dtype`` is a ``torch.dtype``.  On one card these fields are
     accepted and have no effect: ``dp_axes``, ``moe_ep_shard`` and
-    ``moe_local_dispatch`` (sharding).  ``remat`` recomputes each block in
+    ``moe_local_dispatch`` (sharding); the first two name the layouts
+    that :func:`repro_torch.models.common.maybe_shard` asks of a
+    ``DTensor``.  ``remat`` recomputes each block in
     the backward (``torch.utils.checkpoint``); ``remat_policy`` is
     ``"full"`` or ``"dots"``.  ``scan_layers=False`` computes the same
     function as ``True``: both are a loop over the stacked layers here.
@@ -204,3 +206,14 @@ def param_count(params: dict) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
     return params.numel()
+
+
+def active_param_count(cfg: ModelConfig, params: dict) -> int:
+    """Params touched per token (MoE counts top-k + shared experts only)."""
+    total = param_count(params)
+    if cfg.moe_num_experts <= 0:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    routed_total = cfg.num_layers * cfg.moe_num_experts * per_expert
+    routed_active = cfg.num_layers * cfg.moe_top_k * per_expert
+    return total - routed_total + routed_active

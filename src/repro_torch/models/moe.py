@@ -17,6 +17,9 @@ mesh paths (``moe_local_dispatch``: the dispatch per data shard under
 ``shard_map``; ``moe_ep_shard``: experts sharded over 'model') have no
 one-card meaning: on one card both flags run this global dispatch, which
 the reference's local dispatch equals on a one-device mesh.
+``moe_ep_shard`` anchors the expert buffers to 'model' through
+:func:`repro_torch.models.common.maybe_shard`, which only a ``DTensor``
+notices.
 """
 from __future__ import annotations
 
@@ -106,9 +109,14 @@ def moe_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
     buf[slot[keep]] = xf[tok[keep]]                    # rows are distinct
     buf = buf.reshape(e, cap, d)
+    if cfg.moe_ep_shard:
+        buf = cm.maybe_shard(buf, "model", None, None)   # EP over experts
     gate = F.silu(torch.bmm(buf, p["w_gate"]))
     up = torch.bmm(buf, p["w_up"])
-    out = torch.bmm(gate * up, p["w_down"]).reshape(e * cap, d)  # [E*C, D]
+    out = torch.bmm(gate * up, p["w_down"])            # [E, C, D]
+    if cfg.moe_ep_shard:
+        out = cm.maybe_shard(out, "model", None, None)
+    out = out.reshape(e * cap, d)
 
     rows = torch.where(keep[:, None], out[torch.clamp(slot, max=e * cap - 1)],
                        0)

@@ -222,6 +222,7 @@ def xlstm_forward(cfg, params, tokens, *, remat=True):
     """tokens: [B, S] -> float32 logits [B, S, padded_vocab].  (The
     reference's ``remat`` flag is accepted and, as there, unused.)"""
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     h, _ = xlstm_scan_tokens(cfg, params, h)
     h = cm.apply_norm(params["ln_f"], h, "rmsnorm")
     return cm.unembed(params["embed"], h).float()
@@ -231,6 +232,7 @@ def xlstm_decode_step(cfg, params, state, tokens, pos):
     """tokens: [B, 1] -> (float32 logits [B, vocab], state), the state
     updated in place."""
     x = cm.embed(params["embed"], tokens[:, 0]).to(cfg.dtype)
+    x = cm.maybe_shard(x, cfg.dp_axes, None)
     step = {"m": _mlstm_step, "s": _slstm_step}
     for i in range(cfg.num_layers):
         p = cm.layer(params["blocks"], i)

@@ -144,6 +144,7 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     if extra_embeds is not None:
         n_extra = extra_embeds.shape[1]
         h = torch.cat([extra_embeds.to(cfg.dtype), h], dim=1)
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
 
     def block(h, p, window):
@@ -173,6 +174,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos: int):
     Writes this step's K/V into ``cache`` in place and returns it.
     """
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     positions = torch.full((1, 1), pos, dtype=torch.long, device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         h, _ = _block_apply(cfg, cm.layer(params["blocks"], i), h, positions,

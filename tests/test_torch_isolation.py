@@ -43,6 +43,8 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.optim.grad_compress\n"
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.launch.mesh\n"
+            "import repro_torch.launch.dryrun, repro_torch.lint\n"
+            "import repro_torch.launch.hlo_analysis\n"
             "import repro_torch.configs.registry as r\n"
             "[r.get(a) for a in r.PAPER_MODELS + r.ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
