@@ -7,9 +7,10 @@ Phases, each of which fails the run by exception:
 
   1. report the card (name, power limit) and build every kernel from
      ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all
-     started together); count the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-     load) instructions in each tensor-core library, failing if either
-     is 0;
+     started together); print ptxas's registers and spills for every
+     kernel instance, failing on a spill in a tensor-core library; count
+     the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+     each tensor-core library, failing if either is 0;
   2. hold the min-plus product kernel bit for bit against its plain
      PyTorch version on the card, at the main path's shapes and at ragged
      and 1e30-laden ones, and the closure kernel (one launch a
@@ -32,10 +33,12 @@ Phases, each of which fails the run by exception:
      ``torch.profiler`` (device busy time by kernel, idle share);
   5. hold the flash-attention forward kernels, both entry points, against
      their plain version on the card: the tensor-core kernel
-     (``csrc/flash_fwd_sm90.cu``; bf16, d = dv in {64, 128}) and the
-     CUDA-core kernel (``csrc/flash_fwd.cu``; the rest), at the prefill's
-     shape ([36, 2048, 64] bf16, both kernels), at float32 shapes with
-     d = dv and d != dv, at bf16 d = 128, at ragged and short lengths,
+     (``csrc/flash_fwd_sm90.cu``; bf16 at (d, dv) in {(64, 64), (128, 128),
+     (96, 96), (192, 128)}) and the CUDA-core kernel (``csrc/flash_fwd.cu``;
+     the rest), at the prefill's shape ([36, 2048, 64] bf16, both kernels),
+     at float32 shapes with d = dv and d != dv, at bf16 d = 128, at bf16
+     (96, 96) and (192, 128) (both kernels at phi-3-vision's [32, 2624, 96]
+     and MLA's [128, 2048, 192 -> 128]), at ragged and short lengths,
      causal and not;
   6. drive the serving path's prefill: ``make_prefill_step`` on
      smollm-135m at full width (random weights from seed 0), float32 with
@@ -56,13 +59,14 @@ Phases, each of which fails the run by exception:
      ``torch.profiler``;
  10. hold the flash backward kernels against their plain version on the
      card: the tensor-core dq and dk/dv (``csrc/flash_bwd_dq_sm90.cu``,
-     ``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}) and the
-     CUDA-core dq and dk/dv (``csrc/flash_bwd.cu``), at the training shape
-     ([36, 2048, 64] bf16, all four kernels), at float32 shapes with
-     d = dv and d != dv (192 -> 128), at bf16 d = 128, at bf16 d = 96 and
-     192 -> 128 (the CUDA-core kernels, at [32, 2624, 96] and
-     [128, 2048, 192 -> 128] and ragged), at ragged and short lengths,
-     causal and not;
+     ``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}, and dk/dv
+     also at (96, 96) and (192, 128)) and the CUDA-core dq and dk/dv
+     (``csrc/flash_bwd.cu``), at the training shape ([36, 2048, 64] bf16,
+     all four kernels), at float32 shapes with d = dv and d != dv
+     (192 -> 128), at bf16 d = 128, at bf16 d = 96 and 192 -> 128 (the
+     tensor-core dk/dv and the CUDA-core dq, at [32, 2624, 96] and
+     [128, 2048, 192 -> 128], ragged, short and not causal), at ragged and
+     short lengths, causal and not;
  11. drive the training path at smollm-135m's full width (random weights
      from seed 0): float32 with TF32 off at B=2, S=512, loss and grads
      with attn_impl="flash" against "xla" (the CUDA-core kernels); then
@@ -145,10 +149,11 @@ Phases, each of which fails the run by exception:
      deepseek-v2 at full width cut to one layer (MLA 192 -> 128, 160
      experts top-6, 2 shared): float32 flash against xla (the CUDA-core
      forward), the absorbed latent decode of 8 tokens against the
-     materialized prefill, the bf16 prefill at B=1, S=2048 (one CUDA-core
-     launch); each model's forward kernel at its shape against its plain
-     version, timed with its bound and SDPA; each prefill timed and
-     profiled;
+     materialized prefill, the bf16 prefill at B=1, S=2048 (one launch of
+     the tensor-core forward); each model's forward kernel at its shape
+     against its plain version, timed with its bound and SDPA (at MLA's
+     shape the CUDA-core forward too); each prefill timed and profiled,
+     with the flash kernels' share of the profile's busy time;
  18. the last four families at full width (random weights from seed 0;
      every config with attn_impl="flash"): xlstm-125m (12 layers of
      mLSTM / sLSTM), zamba2-2.7b (54 Mamba2 layers, a shared attention
@@ -160,20 +165,21 @@ Phases, each of which fails the run by exception:
      CUDA-core forward launches); then for each the bf16 prefill (xlstm
      B=4 S=1024, zamba2 B=1 S=512, whisper B=4 x 1,500 frames with S=448,
      phi-3-vision B=1 with 576 patches + 2048 tokens) with every launch
-     counter set to 0 just before and read just after (32 CUDA-core and
-     no tensor-core forward launches for phi-3-vision, no flash launch
+     counter set to 0 just before and read just after (32 tensor-core and
+     no CUDA-core forward launches for phi-3-vision, no flash launch
      for the others), finite logits, peak memory, timed; decode ==
      prefill over 32 tokens at the reference's tolerance, a
      ``DecodeEngine`` run of 32 tokens equal to a ``serve_step`` loop's
      (whisper with ``enc_out``), a profiled decode step and prefill (the
-     recurrent families' at S = 128); the
-     CUDA-core forward at [32, 2624, 96] bf16 against its plain version,
-     timed with its bound and SDPA; ``launch/serve.run("whisper_base")``'s
+     recurrent families' at S = 128; phi-3-vision's with the flash
+     kernels' share of busy time); the tensor-core and the CUDA-core
+     forward at [32, 2624, 96] bf16 against their plain version, timed
+     with their bound and SDPA; ``launch/serve.run("whisper_base")``'s
      plan on the card equal to the CPU port's bit for bit;
- 19. every family's training on the card: the bf16 CUDA-core dq and dk/dv
-     at phi-3-vision's [32, 2624, 96] and MLA's [128, 2048, 192 -> 128]
-     against their plain versions, timed with their bounds and SDPA's
-     backward; the six non-dense smoke configs in float32 (TF32 off,
+ 19. every family's training on the card: the bf16 dk/dv (tensor-core by
+     rule, CUDA-core forced) and the CUDA-core dq at phi-3-vision's
+     [32, 2624, 96] and MLA's [128, 2048, 192 -> 128] against their plain
+     versions, timed with their bounds and SDPA's backward; the six non-dense smoke configs in float32 (TF32 off,
      flash, remat), card against the CPU port (the MoE expert choices
      equal first, then the loss at rtol 1e-5 and every gradient leaf at
      atol 1e-5 + rtol 1e-4), with phi-3-vision (also at full width, one
@@ -186,11 +192,13 @@ Phases, each of which fails the run by exception:
      ``train_depths``' memory reckoning allows (weights from phases
      17-18, seed 0), every launch counter set to 0 before each step and
      read after it (per layer two forwards, one dq, one dk/dv:
-     tensor-core for olmoe, CUDA-core for phi-3-vision, none for the
-     others), finite, timed, peak memory, a profiled step (the recurrent
-     families' at S = 64); ``grad_compress`` over one olmoe layer's bf16
-     gradients, card == CPU bit for bit; deepseek-v2's one full-width
-     layer's bf16 loss and gradients (B=1 S=2048); the six
+     tensor-core for olmoe; for phi-3-vision the forwards and dk/dv on
+     the tensor cores and dq on the CUDA cores; none for the others),
+     finite, timed, peak memory, a profiled step (the recurrent families'
+     at S = 64; phi-3-vision's with the flash kernels' share of busy
+     time); ``grad_compress`` over one olmoe layer's bf16 gradients, card
+     == CPU bit for bit; deepseek-v2's one full-width layer's bf16 loss
+     and gradients (B=1 S=2048; launches as phi-3-vision's); the six
      smoke ``train()`` runs in float32 card == CPU, whisper-base's killed
      and resumed; smollm-135m's bf16 step under ``remat_policy="dots"``
      against "full" (loss and launches equal, peak memory);
@@ -280,8 +288,8 @@ def assert_no_spills(stem: str, build_log: dict) -> None:
                                             "loads")]
     if spilled:
         raise AssertionError(f"{stem}: ptxas spilled: {spilled}")
-    log(f"{stem}: ptxas reports 0 spills in each of its {len(lines)} kernel "
-        f"instances (d = 64, 128)")
+    log(f"{stem}: ptxas reports 0 spill bytes in each of its {len(lines)} "
+        f"kernel instances")
 
 
 def paper_jobs_small(seed, registry):
@@ -384,12 +392,13 @@ def device_kernel_times(prof) -> dict:
     return {k: v for k, v in out.items() if v[0] > 0}
 
 
-def profile_device(label: str, fn, *, top: int = 8) -> None:
+def profile_device(label: str, fn, *, top: int = 8) -> dict | None:
     """Device-time breakdown of one warm call of ``fn`` (torch.profiler):
     busy time by kernel name, launches, and the device's idle share.
     Only events that ran on the card count (operator rows and
     autograd-function rows repeat the time of the kernels they
-    launched)."""
+    launched).  Returns the profiled wall, the busy time and the flash
+    kernels' busy time (us), or None where nothing ran on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -404,7 +413,7 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
     if busy_us == 0:
         log(f"profile of {label}: no device time recorded (device "
             f"breakdown not measured)")
-        return
+        return None
     log(f"profile of {label}: wall {wall_us:.0f} us (profiled), device "
         f"busy {busy_us:.0f} us, idle share {1 - busy_us / wall_us:.3f}, "
         f"{sum(n for _, n in kernels.values())} device kernels")
@@ -415,6 +424,22 @@ def profile_device(label: str, fn, *, top: int = 8) -> None:
         us, n = kernels[k]
         log(f"  {us:9.0f} us {n:6d}x ({us / n:.2f} us each, "
             f"{us / busy_us:.1%})  {k[:80]}")
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "flash_us": sum(us for k, (us, _) in kernels.items()
+                            if "flash" in k)}
+
+
+def log_flash_share(label: str, prof: dict | None, wall_ms: float,
+                    before: str) -> None:
+    """One line: ``label``'s wall (host clock, median) and the flash
+    kernels' share of the profile's busy time, beside ``before`` (the
+    same figures of an earlier PR's run)."""
+    share = ("not measured" if prof is None
+             else f"{prof['flash_us'] / prof['busy_us']:.1%} of busy "
+             f"({prof['flash_us'] / 1e3:.2f} of {prof['busy_us'] / 1e3:.2f}"
+             f" ms)")
+    log(f"  {label}: wall {wall_ms:.2f} ms; flash kernels {share}; on "
+        f"the CUDA-core kernels (PERF.md, same card): {before}")
 
 
 # -- phases 5-9: the serving path (flash attention, prefill, decode) ---------
@@ -436,8 +461,9 @@ LSE_TOL = 1e-5
 # kernel lands within it by splitting P and dS into hi + lo bf16 (PERF.md)
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
 # (bh, S, d, dv, dtype, causal); the first is the prefill's per-layer shape.
-# bf16 with d = dv in {64, 128} takes the tensor-core kernel, the rest the
-# CUDA-core kernel (flash.kernel_variant); at the first shape both run
+# bf16 at (d, dv) in {(64, 64), (128, 128), (96, 96), (192, 128)} takes the
+# tensor-core kernel, the rest the CUDA-core kernel (flash.kernel_variant);
+# at BOTH_FWD_SHAPES both run
 FLASH_CASES = [(36, 2048, 64, 64, "bfloat16", True),
                (8, 256, 64, 64, "float32", True),
                (2, 256, 192, 128, "float32", True),
@@ -450,7 +476,21 @@ FLASH_CASES = [(36, 2048, 64, 64, "bfloat16", True),
                (2, 64, 128, 128, "bfloat16", True),
                (1, 1, 64, 64, "bfloat16", True),
                (2, 1000, 64, 64, "bfloat16", False),
-               (2, 300, 128, 128, "bfloat16", False)]
+               (2, 300, 128, 128, "bfloat16", False),
+               # bf16 at phi-3-vision's (96, 96) and MLA's (192, 128): the
+               # paths' shapes, ragged, not causal and short
+               (32, 2624, 96, 96, "bfloat16", True),
+               (128, 2048, 192, 128, "bfloat16", True),
+               (4, 1000, 96, 96, "bfloat16", True),
+               (4, 1000, 192, 128, "bfloat16", True),
+               (2, 300, 96, 96, "bfloat16", False),
+               (2, 300, 192, 128, "bfloat16", False),
+               (1, 1, 96, 96, "bfloat16", True),
+               (3, 130, 192, 128, "bfloat16", True)]
+# [bh, S, d, dv] bf16 where phase 5 holds the CUDA-core forward beside the
+# tensor-core one: the smollm prefill's, phi-3-vision's and MLA's shapes
+BOTH_FWD_SHAPES = ((36, 2048, 64, 64), (32, 2624, 96, 96),
+                   (128, 2048, 192, 128))
 FWD_ENTRIES = ("flash_fwd_lse", "flash_attention_bhsd")
 PREFILL_SHAPE = (36, 2048, 64)  # [B*H, S, hd] of one layer at B=4, S=2048
 # (entry, variant) -> (name in the kernels line, source, TPU kernel)
@@ -598,7 +638,7 @@ def serving_phases(dev, smi: str) -> list[dict]:
         want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
                                                  causal=causal)
         variants = [flash.kernel_variant("flash_fwd_lse", q.dtype, d, dv)]
-        if (bh, s, d, dtype) == (*PREFILL_SHAPE, "bfloat16"):
+        if dtype == "bfloat16" and (bh, s, d, dv) in BOTH_FWD_SHAPES:
             variants.append("simt")     # the CUDA-core kernel at the shape
         for variant in variants:
             o, lse = fwd_call(flash, "flash_fwd_lse", variant, q, k, v,
@@ -615,8 +655,7 @@ def serving_phases(dev, smi: str) -> list[dict]:
                 f"{gate_share(o, want_o, atol, rtol):.3f}), max |lse - "
                 f"plain| {e_l:.3e}")
             if (s, dtype) in ((2048, "bfloat16"), (256, "float32"),
-                              (1000, "bfloat16"), (130, "bfloat16")) \
-                    and d == dv:
+                              (1000, "bfloat16"), (130, "bfloat16")):
                 o2, _ = fwd_call(flash, "flash_attention_bhsd", variant, q, k,
                                  v, scale=scale, causal=causal)
                 torch.cuda.synchronize()
@@ -625,8 +664,8 @@ def serving_phases(dev, smi: str) -> list[dict]:
                                     f"{dtype} [{bh},{s}]", rtol)
                 key = ("flash_attention_bhsd", variant)
                 err[key] = max(err[key], e2)
-                log(f"  no-lse entry point at [{bh},{s},{d}]: max |O - "
-                    f"plain| {e2:.3e}")
+                log(f"  no-lse entry point at [{bh},{s},{d}->{dv}]: max "
+                    f"|O - plain| {e2:.3e}")
 
     # -- 6. full-width smollm-135m prefill ------------------------------------
     full = registry.config("smollm_135m")
@@ -796,8 +835,9 @@ def serving_phases(dev, smi: str) -> list[dict]:
 # -- phases 10-12: the training path (flash backward, train step) ------------
 
 # (bh, S, d, dv, dtype, causal); the first is the training path's per-layer
-# shape; the dk/dv kernel is chosen as the forward is, and at the first
-# shape both run
+# shape; each entry's kernel is flash.kernel_variant's (bf16 at (96, 96)
+# and (192, 128): the tensor-core dk/dv and the CUDA-core dq), and at the
+# first shape both variants of each run
 BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (8, 256, 64, 64, "float32", True),
              (2, 256, 192, 128, "float32", True),
@@ -813,11 +853,16 @@ BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (2, 1000, 64, 64, "bfloat16", False),
              (2, 300, 128, 128, "bfloat16", False),
              # bf16 at phi-3-vision's 96 and MLA's 192 -> 128: the
-             # CUDA-core kernels, at the train paths' shapes and ragged
+             # tensor-core dk/dv and the CUDA-core dq, at the train paths'
+             # shapes, ragged, not causal and short
              (32, 2624, 96, 96, "bfloat16", True),
              (128, 2048, 192, 128, "bfloat16", True),
              (4, 1000, 96, 96, "bfloat16", True),
              (4, 1000, 192, 128, "bfloat16", True),
+             (2, 300, 96, 96, "bfloat16", False),
+             (2, 300, 192, 128, "bfloat16", False),
+             (1, 1, 96, 96, "bfloat16", True),
+             (1, 1, 192, 128, "bfloat16", True),
              # olmoe-1b-7b's train step (B=4, 16 heads of 128): the
              # tensor-core dq and dk/dv at the shape phase 19 runs them
              (64, 2048, 128, 128, "bfloat16", True)]
@@ -905,7 +950,10 @@ def training_phases(dev, smi: str) -> list[dict]:
                                                  **kw)
         torch.cuda.synchronize()
         variant = flash.kernel_variant("flash_bwd_dkv", q.dtype, d, dv)
-        what = (f"flash_bwd ({variant}) {dtype} [{bh},{s},{d}->{dv}] "
+        dq_variant = flash.kernel_variant("flash_bwd_dq", q.dtype, d, dv)
+        kernels = (variant if dq_variant == variant
+                   else f"dq {dq_variant}, dk/dv {variant}")
+        what = (f"flash_bwd ({kernels}) {dtype} [{bh},{s},{d}->{dv}] "
                 f"causal={causal}")
         atol, rtol = BWD_TOL[dtype]
         e_dq = max_err_within(dq, want_dq, atol, what + " dq", rtol)
@@ -914,8 +962,9 @@ def training_phases(dev, smi: str) -> list[dict]:
         if not all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv_))):
             raise AssertionError(f"{what}: flash_bwd differs from its two "
                                  f"kernels' own launches")
-        for entry, e in (("flash_bwd_dq", e_dq), ("flash_bwd_dkv", e_dkv)):
-            err[(entry, variant)] = max(err[(entry, variant)], e)
+        for key, e in ((("flash_bwd_dq", dq_variant), e_dq),
+                       (("flash_bwd_dkv", variant), e_dkv)):
+            err[key] = max(err[key], e)
         share_dkv = max(gate_share(dk, want_dk, atol, rtol),
                         gate_share(dv_, want_dv, atol, rtol))
         log(f"{what}: max |dq - plain| {e_dq:.3e} (share of the gate "
@@ -2273,51 +2322,66 @@ def time_prefill(step, params, batch, n: int = 5) -> list:
     return ms
 
 
-def hold_and_time_fwd(rng, dev, heads, bh, s, d, dv, smi):
+def hold_and_time_fwd(rng, dev, heads, bh, s, d, dv, smi,
+                      also_simt: bool = False):
     """The bf16 forward kernel that the dispatch rule picks at [bh, s, d ->
     dv] (``heads`` per batch row) against its plain version; its time, the
     plain version's, SDPA's on [bh / heads, heads, s, d] (None where SDPA
-    refuses the shape) and the bound."""
+    refuses the shape) and the bound.  With ``also_simt``, the CUDA-core
+    forward (forced) at the same inputs too, under "simt"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
     variant = flash.kernel_variant("flash_fwd_lse", torch.bfloat16, d, dv)
     q, k, v = flash_inputs(rng, bh, s, d, dv, "bfloat16", dev)
     scale = 1 / math.sqrt(d)
-    o, lse = flash.flash_fwd_lse(q, k, v, scale=scale, causal=True)
     want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale,
                                              causal=True)
-    torch.cuda.synchronize()
     atol, rtol = FLASH_TOL["bfloat16"]
     width = f"{d}->{dv}" if d != dv else f"{d}"
-    what = f"flash_fwd_lse ({variant}) bf16 [{bh},{s},{width}] causal"
-    err = max(max_err_within(o, want_o, atol, what + " O", rtol),
-              max_err_within(lse, want_lse, LSE_TOL, what + " lse"))
-    log(f"{what}: max |O - plain| (and lse) {err:.3e}, share of the O gate "
-        f"{gate_share(o, want_o, atol, rtol):.3f}")
-    del o, lse, want_o, want_lse
-    t = {"kernel": event_ms(lambda: flash.flash_fwd_lse(
-        q, k, v, scale=scale, causal=True), reps=10, inner=5),
-        "plain": event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
-                          reps=3, inner=2)}
+    variants = [variant] + (["simt"] if also_simt and variant != "simt"
+                            else [])
+    held = {}
+    for var in variants:
+        o, lse = fwd_call(flash, "flash_fwd_lse", var, q, k, v, scale=scale,
+                          causal=True)
+        torch.cuda.synchronize()
+        what = f"flash_fwd_lse ({var}) bf16 [{bh},{s},{width}] causal"
+        err = max(max_err_within(o, want_o, atol, what + " O", rtol),
+                  max_err_within(lse, want_lse, LSE_TOL, what + " lse"))
+        log(f"{what}: max |O - plain| (and lse) {err:.3e}, share of the O "
+            f"gate {gate_share(o, want_o, atol, rtol):.3f}")
+        del o, lse
+        fast = var == "sm90"
+        held[var] = {"err": err, "ms": event_ms(
+            lambda var=var: fwd_call(flash, "flash_fwd_lse", var, q, k, v,
+                                     scale=scale, causal=True),
+            reps=10 if fast else 3, inner=5 if fast else 2)}
+    del want_o, want_lse
+    plain = event_ms(lambda: ref.flash_fwd_lse_ref(q, k, v, scale=scale),
+                     reps=3, inner=2)
     qs, ks, vs = (x.unflatten(0, (-1, heads)) for x in (q, k, v))
     try:
-        t["sdpa"] = event_ms(lambda: F.scaled_dot_product_attention(
+        sdpa = event_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, scale=scale), reps=10, inner=5)
     except RuntimeError as exc:
         log(f"  F.scaled_dot_product_attention refuses d={d}, dv={dv}: "
             f"library time not measured ({str(exc)[:120]})")
-        t["sdpa"] = None
+        sdpa = None
     bound = flash_bound(bh, s, d, dv, "bfloat16", True, True)
-    sdpa = ("not measured" if t["sdpa"] is None
-            else f"{t['sdpa'] * 1e3:.1f} us")
-    log(f"  {what} on {smi}: {t['kernel'] * 1e3:.1f} us per call; bound "
-        f"{bound[0] * 1e3:.2f} us ({bound[1]}); plain version "
-        f"{t['plain'] * 1e3:.1f} us; F.scaled_dot_product_attention "
-        f"(library yardstick) {sdpa}")
-    return {"variant": variant, "err": err, "ms": t["kernel"],
-            "plain_ms": t["plain"], "sdpa_ms": t["sdpa"], "bound": bound,
-            "shape": f"[{bh},{s},{width}] bf16"}
+    sdpa_txt = "not measured" if sdpa is None else f"{sdpa * 1e3:.1f} us"
+    times = "; ".join(f"{var} {held[var]['ms'] * 1e3:.1f} us per call"
+                      for var in variants)
+    log(f"  flash_fwd_lse bf16 [{bh},{s},{width}] causal on {smi}: {times}; "
+        f"bound {bound[0] * 1e3:.2f} us ({bound[1]}); plain version "
+        f"{plain * 1e3:.1f} us; F.scaled_dot_product_attention (library "
+        f"yardstick) {sdpa_txt}")
+    out = {"variant": variant, "err": held[variant]["err"],
+           "ms": held[variant]["ms"], "plain_ms": plain, "sdpa_ms": sdpa,
+           "bound": bound, "shape": f"[{bh},{s},{width}] bf16"}
+    if "simt" in held and variant != "simt":
+        out["simt"] = held["simt"]
+    return out
 
 
 def moe_mla_phase(dev, smi: str, keep) -> dict:
@@ -2483,10 +2547,11 @@ def moe_mla_phase(dev, smi: str, keep) -> dict:
     torch.cuda.synchronize()
     counts = flash_variant_counts(flash)
     peak = torch.cuda.max_memory_allocated()
-    if counts != {"flash_fwd_lse/simt": DEEPSEEK_LAYERS}:
+    if counts != {"flash_fwd_lse/sm90": DEEPSEEK_LAYERS}:
         raise AssertionError(f"deepseek-v2 bf16 prefill: flash launches "
                              f"{counts}, expected {DEEPSEEK_LAYERS} of the "
-                             f"CUDA-core forward (d != dv)")
+                             f"tensor-core forward at (192, 128) and none "
+                             f"of the CUDA-core one")
     if logits.shape != (1, 2048, full.padded_vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("deepseek-v2 bf16 logits not finite or "
@@ -2498,15 +2563,20 @@ def moe_mla_phase(dev, smi: str, keep) -> dict:
         f"capacity {drop_share(drops):.4f}; peak device memory "
         f"{peak / 2**30:.2f} GiB")
     out["mla"] = hold_and_time_fwd(rng, dev, full.num_heads, bh, s, d, dv,
-                                   smi)
+                                   smi, also_simt=True)
     ms = time_prefill(step, params, batch)
     out["deepseek_prefill_ms"] = statistics.median(ms)
     log(f"  prefill step deepseek-v2 (1 layer) B=1 S=2048 bf16: median "
         f"{statistics.median(ms):.2f} ms over 5 (min {min(ms):.2f}, max "
         f"{max(ms):.2f}) on {smi}")
+    prof = None
     if profiler_works():
-        profile_device("one deepseek-v2 prefill (1 layer, B=1, S=2048, "
-                       "bf16)", lambda: step(params, batch), top=10)
+        prof = profile_device("one deepseek-v2 prefill (1 layer, B=1, "
+                              "S=2048, bf16)", lambda: step(params, batch),
+                              top=10)
+    log_flash_share("deepseek-v2 layer prefill (B=1, S=2048, bf16)", prof,
+                    out["deepseek_prefill_ms"], "25.93 ms, the forward "
+                    "58.3% of busy")
     del params, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2749,7 +2819,7 @@ def families_phase(dev, smi: str, keep) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(full, attn_impl="flash")
-        want_flash = ({"flash_fwd_lse/simt": full.num_layers}
+        want_flash = ({"flash_fwd_lse/sm90": full.num_layers}
                       if full.family == "vlm" else {})
         keep(arch, params)
         res = serve_family(name, cfg, params, dev, smi, b, s, rng,
@@ -2759,17 +2829,24 @@ def families_phase(dev, smi: str, keep) -> dict:
         if full.family == "vlm":
             out["phi3v"] = hold_and_time_fwd(rng, dev, full.num_heads,
                                              *PHI3V_SHAPE, PHI3V_SHAPE[2],
-                                             smi)
+                                             smi, also_simt=True)
             n = full.num_layers
-            log(f"  {name} prefill: {n} CUDA-core flash launches, "
+            log(f"  {name} prefill: {n} tensor-core flash launches, "
                 f"{n * out['phi3v']['ms']:.2f} ms of the "
                 f"{res['prefill_ms']:.2f} ms by the kernel's time per call")
+        prof = None
         if profiler_works():
             ps = RECURRENT_PROFILE_S if full.sub_quadratic else s
             batch = family_batch(cfg, rng, b, ps)
             step = steps.make_prefill_step(cfg, device=dev)
-            profile_device(f"one {name} prefill (B={b}, S={ps}, bf16)",
-                           lambda: step(params, batch), top=8)
+            prof = profile_device(f"one {name} prefill (B={b}, S={ps}, "
+                                  f"bf16)", lambda: step(params, batch),
+                                  top=8)
+        if full.family == "vlm":
+            log_flash_share(f"{name} prefill (B=1, {full.num_patches} "
+                            f"patches + {s}, bf16)", prof,
+                            res["prefill_ms"], "140.80 ms, the forward 61% "
+                            "of busy")
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2808,13 +2885,18 @@ PHI3V_BWD = (32, 576 + 2048, 96, 96)   # [B*H, P + S, d, dv] of phi-3-vision's
 #                                        train step at B = 1
 CARD_BYTES = 80e9                      # the H100's 80 GB
 SPARE_BYTES = 15e9                     # kept free of the memory reckoning
+# bf16 at (96, 96) and (192, 128): the kernel each flash entry of a train
+# step takes (the forwards and dk/dv on the tensor cores, dq on the CUDA
+# cores), written out here rather than read from the dispatch rule
+WIDE_BF16 = {"flash_fwd_lse": "sm90", "flash_bwd_dq": "simt",
+             "flash_bwd_dkv": "sm90"}
 # (arch, depth unit, bf16 train step (B, S), the flash kernels its
-# attention must take: tensor-core at olmoe's d = 128, CUDA-core at
+# attention must take: tensor-core at olmoe's d = 128, WIDE_BF16 at
 # phi-3-vision's d = 96, none for the rest); the depth is cut, in whole
 # units (zamba2's groups of 6 Mamba2 layers), only as far as
 # train_reckoning says the card forces
 TRAIN_FAMILIES = (("olmoe_1b_7b", 1, (4, 2048), "sm90"),
-                  ("phi3_vision_4_2b", 1, (1, 2048), "simt"),
+                  ("phi3_vision_4_2b", 1, (1, 2048), WIDE_BF16),
                   ("zamba2_2_7b", 6, (1, 512), None),
                   ("xlstm_125m", 1, (4, 256), None),
                   ("whisper_base", 1, (4, 448), None))
@@ -2903,17 +2985,18 @@ def parking(depths: dict) -> tuple:
 
 
 def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
-    """The bf16 CUDA-core dq and dk/dv kernels at [bh, s, d -> dv] (one
-    batch row of bh heads) against their plain versions at BWD_TOL; their
-    times, the plain versions', the backward of
-    F.scaled_dot_product_attention (``autograd.grad`` of a saved forward
-    on [1, bh, s, d]; None where it refuses the shape) and the bounds."""
+    """The bf16 backward kernels at [bh, s, d -> dv] (one batch row of bh
+    heads) against their plain versions at BWD_TOL, each gate share
+    printed: dk/dv through the kernel the dispatch rule picks and, where
+    that is the tensor-core one, the CUDA-core kernel forced at the same
+    inputs; dq through the rule's kernel.  Their times, the plain
+    versions', the backward of F.scaled_dot_product_attention
+    (``autograd.grad`` of a saved forward on [1, bh, s, d]; None where it
+    refuses the shape) and the bounds.  "err" and "ms" are keyed by
+    (entry, variant)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
-    if flash.kernel_variant("flash_bwd_dq", torch.bfloat16, d, dv) != "simt":
-        raise AssertionError(f"bf16 d={d} dv={dv} should take the CUDA-core "
-                             f"backward")
     q, k, v = flash_inputs(rng, bh, s, d, dv, "bfloat16", dev)
     do = torch.from_numpy(rng.standard_normal((bh, s, dv), dtype=np.float32)
                           ).to(dev, torch.bfloat16)
@@ -2921,28 +3004,35 @@ def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
     o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
     delta = ref.flash_bwd_delta(o, do)
     args = (q, k, v, do, lse, delta)
-    dq = flash.flash_bwd_dq(*args, **kw)
-    dk, dv_ = flash.flash_bwd_dkv(*args, **kw)
-    want_dq = ref.flash_bwd_dq_ref(*args, **kw)
-    want_dk, want_dv = ref.flash_bwd_dkv_ref(*args, **kw)
-    torch.cuda.synchronize()
+    want = {"flash_bwd_dq": (ref.flash_bwd_dq_ref(*args, **kw),),
+            "flash_bwd_dkv": ref.flash_bwd_dkv_ref(*args, **kw)}
+    keys = []
+    for entry in BWD_ENTRIES:
+        rule = flash.kernel_variant(entry, torch.bfloat16, d, dv)
+        keys += [(entry, rule)] + ([(entry, "simt")] if rule == "sm90"
+                                   and entry == "flash_bwd_dkv" else [])
     atol, rtol = BWD_TOL["bfloat16"]
     width = f"{d}->{dv}" if d != dv else f"{d}"
-    what = f"flash_bwd (simt) bf16 [{bh},{s},{width}] causal"
-    err = {"flash_bwd_dq": max_err_within(dq, want_dq, atol, what + " dq",
-                                          rtol),
-           "flash_bwd_dkv": max(
-               max_err_within(dk, want_dk, atol, what + " dk", rtol),
-               max_err_within(dv_, want_dv, atol, what + " dv", rtol))}
-    share_dkv = max(gate_share(dk, want_dk, atol, rtol),
-                    gate_share(dv_, want_dv, atol, rtol))
-    log(f"{what}: max |dq - plain| {err['flash_bwd_dq']:.3e} (share of the "
-        f"gate {gate_share(dq, want_dq, atol, rtol):.3f}), max |dk, dv - "
-        f"plain| {err['flash_bwd_dkv']:.3e} (share {share_dkv:.3f}); atol "
-        f"{atol}, rtol {rtol}")
-    del dq, dk, dv_, want_dq, want_dk, want_dv
-    t = {e: event_ms(lambda e=e: getattr(flash, e)(*args, **kw), reps=5,
-                     inner=2) for e in BWD_ENTRIES}
+    err, shares = {}, {}
+    for entry, var in keys:
+        got = bwd_call(flash, entry, var, *args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        what = f"{entry} ({var}) bf16 [{bh},{s},{width}] causal"
+        err[(entry, var)] = max(
+            max_err_within(g, w, atol, f"{what} {name}", rtol)
+            for g, w, name in zip(got, want[entry], ("dk", "dv")
+                                  if entry == "flash_bwd_dkv" else ("dq",)))
+        shares[(entry, var)] = max(gate_share(g, w, atol, rtol)
+                                   for g, w in zip(got, want[entry]))
+        log(f"{what}: max |got - plain| {err[(entry, var)]:.3e}, share of "
+            f"the gate {shares[(entry, var)]:.3f} (atol {atol}, rtol "
+            f"{rtol})")
+        del got
+    del want
+    t = {(e, var): event_ms(lambda e=e, var=var: bwd_call(
+        flash, e, var, *args, **kw), reps=10 if var == "sm90" else 5,
+        inner=5 if var == "sm90" else 2) for e, var in keys}
     plain = {"flash_bwd_dq": event_ms(lambda: ref.flash_bwd_dq_ref(
         *args, **kw), reps=3, inner=1),
         "flash_bwd_dkv": event_ms(lambda: ref.flash_bwd_dkv_ref(*args, **kw),
@@ -2961,14 +3051,16 @@ def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
     bound = {e: flash_bwd_bound(bh, s, d, dv, "bfloat16", True, e)
              for e in BWD_ENTRIES}
     sdpa_txt = "not measured" if sdpa is None else f"{sdpa * 1e3:.1f} us"
-    for e in BWD_ENTRIES:
-        log(f"  {e} (simt) bf16 [{bh},{s},{width}] causal on {smi}: "
-            f"{t[e] * 1e3:.1f} us per call; bound {bound[e][0] * 1e3:.2f} us "
-            f"({bound[e][1]}); plain version {plain[e] * 1e3:.1f} us")
+    for e, var in keys:
+        log(f"  {e} ({var}) bf16 [{bh},{s},{width}] causal on {smi}: "
+            f"{t[(e, var)] * 1e3:.1f} us per call; bound "
+            f"{bound[e][0] * 1e3:.2f} us ({bound[e][1]}); plain version "
+            f"{plain[e] * 1e3:.1f} us")
     log(f"  F.scaled_dot_product_attention backward (library yardstick, "
         f"dq, dk and dv together): {sdpa_txt}")
-    return {"err": err, "ms": t, "plain_ms": plain, "sdpa_ms": sdpa,
-            "bound": bound, "shape": f"[{bh},{s},{width}] bf16"}
+    return {"err": err, "share": shares, "ms": t, "plain_ms": plain,
+            "sdpa_ms": sdpa, "bound": bound,
+            "shape": f"[{bh},{s},{width}] bf16"}
 
 
 def smoke_train_batch(cfg, rng, b: int, s: int) -> dict:
@@ -3120,15 +3212,19 @@ def train_batches(cfg, b: int, s: int, n: int, dev) -> list:
 
 def step_launches(variant, layers: int) -> dict:
     """The flash launches of one train step with remat through
-    ``variant``'s kernels: per layer two forwards (forward and recompute),
-    one dq and one dk/dv; none where ``variant`` is None.  The caller
-    names the variant, so a head width the dispatch rule misroutes fails
-    the launch gate."""
+    ``variant``'s kernels -- one variant for every entry, or a dict of
+    one per entry (``WIDE_BF16``): per layer two forwards (forward and
+    recompute), one dq and one dk/dv; none where ``variant`` is None.
+    The caller names the variants, so a head width the dispatch rule
+    misroutes fails the launch gate."""
     if variant is None:
         return {}
-    return {f"flash_fwd_lse/{variant}": 2 * layers,
-            f"flash_bwd_dq/{variant}": layers,
-            f"flash_bwd_dkv/{variant}": layers}
+    per = (variant if isinstance(variant, dict)
+           else dict.fromkeys(("flash_fwd_lse", "flash_bwd_dq",
+                               "flash_bwd_dkv"), variant))
+    return {f"flash_fwd_lse/{per['flash_fwd_lse']}": 2 * layers,
+            f"flash_bwd_dq/{per['flash_bwd_dq']}": layers,
+            f"flash_bwd_dkv/{per['flash_bwd_dkv']}": layers}
 
 
 def grad_compress_card_vs_cpu(cfg, params, batch, dev) -> None:
@@ -3225,12 +3321,17 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
         f"{TRAIN_STEPS} (min {min(walls):.2f}, max {max(walls):.2f}), "
         f"{tokens / med * 1e3:.0f} tokens/s; peak device memory "
         f"{peak / 2**30:.2f} GiB on {smi}")
+    prof = None
     if profiler_works():
         ps = TRAIN_PROFILE_S if cfg.sub_quadratic else s
         batch = train_batches(cfg, b, ps, 1, dev)[0]
-        profile_device(f"one {cfg.name} train step (depth {cfg.num_layers}, "
-                       f"B={b}, S={ps}, bf16)",
-                       lambda: step(params, opt_state, batch), top=8)
+        prof = profile_device(f"one {cfg.name} train step (depth "
+                              f"{cfg.num_layers}, B={b}, S={ps}, bf16)",
+                              lambda: step(params, opt_state, batch), top=8)
+    if cfg.family == "vlm":
+        log_flash_share(f"{cfg.name} train step (depth {cfg.num_layers}, "
+                        f"B={b}, S={s}, bf16)", prof, med, "672.28 ms, the "
+                        "forward 14.8%, dk/dv 14.3% and dq 11.4% of busy")
     return {"launches": dict(total), "step_ms": med, "peak_gib": peak / 2**30,
             "tokens_per_s": tokens / med * 1e3, "losses": losses}
 
@@ -3238,7 +3339,7 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
 def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     """Phase 19 on the bf16 weights phases 17-18 ``parked`` (cut to
     ``train_depths``' ``depths``); returns the flash launches of each
-    train path, the bf16 CUDA-core backward's checks and times at
+    train path, the bf16 backward kernels' checks and times at
     phi-3-vision's and MLA's shapes, and each family's step figures."""
     import gc
     import tempfile
@@ -3259,7 +3360,7 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     def lap(what):
         log(f"  [phase 19: {what} at {time.perf_counter() - start:.1f} s]")
 
-    # -- the bf16 CUDA-core backward at the train paths' head widths
+    # -- the bf16 backward kernels at the train paths' head widths
     out["bwd"] = {"phi3v": hold_and_time_bwd(rng, dev, *PHI3V_BWD, smi),
                   "mla": hold_and_time_bwd(rng, dev, *MLA_SHAPE, smi)}
     gc.collect()
@@ -3335,7 +3436,7 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     wall = (time.perf_counter() - t0) * 1e3
     counts = flash_variant_counts(flash)
     peak = torch.cuda.max_memory_allocated()
-    want = step_launches("simt", DEEPSEEK_LAYERS)     # d 192 != dv 128
+    want = step_launches(WIDE_BF16, DEEPSEEK_LAYERS)  # (192, 128)
     if counts != want:
         raise AssertionError(f"deepseek-v2 bf16 loss + grads: launches "
                              f"{counts}, expected {want}")
@@ -3349,10 +3450,14 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
         f"+ grads B=1 S=2048: loss {float(loss):.4f}, finite gradients; "
         f"launches {counts}; {wall:.2f} ms (the first call); peak device "
         f"memory {peak / 2**30:.2f} GiB on {smi}")
+    prof = None
     if profiler_works():
-        profile_device("one deepseek-v2 loss + grads (1 layer, B=1, S=2048, "
-                       "bf16)", lambda: loss_and_grads(cfg, params, batch,
-                                                       dev), top=8)
+        prof = profile_device("one deepseek-v2 loss + grads (1 layer, B=1, "
+                              "S=2048, bf16)", lambda: loss_and_grads(
+                                  cfg, params, batch, dev), top=8)
+    log_flash_share("deepseek-v2 layer loss + grads (B=1, S=2048, bf16; the "
+                    "first call's wall)", prof, wall, "the flash kernels "
+                    "56.9% of busy")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3523,13 +3628,18 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
     """The kernels line.  The kernels on this run's newest paths report
     those paths' launches (phase 16's SA, exact and bounds solves for the
     closure kernel, the catalog's V = 48 solves for the product, the
-    olmoe-1b-7b prefills of phase 17 for the tensor-core forward,
-    phi-3-vision's prefills of phase 18 for the CUDA-core one, and the
-    bf16 train steps of phase 19 for the four backward kernels); every
-    path's count stands in "launches_by_path".  "timed_at" names the shape
-    of the row's times; "also_timed" keeps the row's times at the shapes
-    of earlier paths."""
+    phi-3-vision prefills of phase 18 for both forward kernels -- bf16
+    through the tensor-core one, float32 through the CUDA-core one -- and
+    the bf16 train steps of phase 19 for the four backward kernels);
+    every path's count stands in "launches_by_path".  "timed_at" names the
+    shape of the row's times; "also_timed" keeps the row's times at the
+    other shapes this run timed it at (the CUDA-core kernels forced at
+    the shapes the tensor-core ones now take)."""
     from repro_torch.kernels import minplus
+
+    def timed_of(row):
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")}
 
     for row, entry in zip(minplus_rows, minplus.ENTRIES):
         row["launches_by_path"] = {"§V large solves (phase 3)":
@@ -3562,29 +3672,38 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                    "library_ms": wide["sdpa_ms"]}
             row["max_abs_err"] = max(row["max_abs_err"], wide["err"])
         # each newer path's launches; the newest path that launched this
-        # kernel gives the row its launches and its times
-        for phase, runs, held in (
-                (17, moe_mla["launches"],
-                 moe_mla["mla" if variant == "simt" else "olmoe"]),
-                (18, families["launches"], families.get("phi3v")),
-                (19, trained["launches"], None)):
+        # kernel, where this run timed the kernel at that path's shape,
+        # gives the row its launches and its times
+        for phase, runs, helds in (
+                (17, moe_mla["launches"], (moe_mla["olmoe"], moe_mla["mla"])),
+                (18, families["launches"], (families.get("phi3v"),)),
+                (19, trained["launches"], ())):
             mine = {what: counts.get(f"flash_fwd_lse/{variant}", 0)
                     for what, counts in runs.items()}
             mine = {what: n for what, n in mine.items() if n}
             for what, n in mine.items():
                 row["launches_by_path"][f"{what} (phase {phase})"] = n
-            if not mine or held is None or held["variant"] != variant:
-                continue
-            row["also_timed"][row["timed_at"]] = {k: row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}
-            row.update(launches=sum(mine.values()),
-                       max_abs_err=max(row["max_abs_err"], held["err"]),
-                       ms=held["ms"], plain_ms=held["plain_ms"],
-                       bound_ms=held["bound"][0], bound_by=held["bound"][1],
-                       library_ms=held["sdpa_ms"], timed_at=held["shape"])
+            for held in helds:
+                if held is None:
+                    continue
+                mine_held = (held if held["variant"] == variant
+                             else held.get(variant))
+                if mine_held is None:
+                    continue
+                row["also_timed"][row["timed_at"]] = timed_of(row)
+                row.update(max_abs_err=max(row["max_abs_err"],
+                                           mine_held["err"]),
+                           ms=mine_held["ms"], plain_ms=held["plain_ms"],
+                           bound_ms=held["bound"][0],
+                           bound_by=held["bound"][1],
+                           library_ms=held["sdpa_ms"], timed_at=held["shape"])
+                if mine:
+                    row["launches"] = sum(mine.values())
+        row["also_timed"].pop(row["timed_at"], None)
     # the backward kernels: phase 19's bf16 train paths give the launches;
-    # the CUDA-core rows their times at phi-3-vision's shape (MLA's and
-    # the smollm training shape's under "also_timed")
+    # each kernel this run timed at phi-3-vision's and MLA's shapes takes
+    # its times at phi-3-vision's (MLA's and the smollm training shape's
+    # under "also_timed")
     for row in flash_rows:
         if not row["name"].startswith("flash_bwd"):
             continue
@@ -3601,22 +3720,21 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                 bf16 += n if "bf16" in what else 0
         if bf16:
             row["launches"] = bf16
-        if variant == "simt":
-            row["also_timed"] = {row["timed_at"]: {k: row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}}
-            for key in ("mla", "phi3v"):
-                held = trained["bwd"][key]
-                timed = {"ms": held["ms"][entry],
-                         "plain_ms": held["plain_ms"][entry],
-                         "bound_ms": held["bound"][entry][0],
-                         "library_ms": held["sdpa_ms"]}
-                row["max_abs_err"] = max(row["max_abs_err"],
-                                         held["err"][entry])
-                if key == "mla":
-                    row["also_timed"][held["shape"]] = timed
-                else:
-                    row.update(timed, bound_by=held["bound"][entry][1],
-                               timed_at=held["shape"])
+        for key in ("mla", "phi3v"):
+            held = trained["bwd"][key]
+            if (entry, variant) not in held["ms"]:
+                continue
+            row.setdefault("also_timed", {})[row["timed_at"]] = \
+                timed_of(row)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     held["err"][(entry, variant)])
+            row.update(ms=held["ms"][(entry, variant)],
+                       plain_ms=held["plain_ms"][entry],
+                       bound_ms=held["bound"][entry][0],
+                       bound_by=held["bound"][entry][1],
+                       library_ms=held["sdpa_ms"], timed_at=held["shape"])
+        if "also_timed" in row:
+            row["also_timed"].pop(row["timed_at"], None)
     return minplus_rows + flash_rows
 
 
@@ -3655,7 +3773,9 @@ def main() -> int:
     for stem, lib in zip(flash.STEMS, lib_paths[1:]):
         if stem.endswith("_sm90"):
             count_tensor_core_sass(stem, lib)
-    assert_no_spills("flash_bwd_dq_sm90", flash.build_log)
+    for stem in flash.STEMS:
+        if stem.endswith("_sm90"):
+            assert_no_spills(stem, flash.build_log)
 
     log(f"phase 1 took {time.perf_counter() - t_start:.1f} s")
     t = time.perf_counter()

@@ -1,5 +1,5 @@
 // Flash-attention dK/dV backward on Hopper's tensor cores (sm_90a): bf16,
-// D = DV in {64, 128}.
+// head widths (D, DV) in {(64, 64), (128, 128), (96, 96), (192, 128)}.
 //
 // With the forward's logsumexp L and delta[i] = dO[i] . O[i] (computed by
 // the caller), P is recomputed tile by tile and never stored:
@@ -8,10 +8,11 @@
 //   dS[i, j] = P[i, j] * (dO[i] . V[j] - delta[i]) * scale
 //   dK[j] = sum_i dS[i, j] Q[i],   dV[j] = sum_i P[i, j] dO[i]
 //
-// over queries i >= j (causal) or all queries; Q, K, V, dO are [BH, S, D]
-// bf16, L and delta [BH, S] float32; dK and dV are written in bf16.  Every
-// other dtype and head width takes flash_bwd.cu's dK/dV kernel; the wrapper
-// (kernels/flash.py:kernel_variant) chooses by dtype and shape alone.
+// over queries i >= j (causal) or all queries; Q, K are [BH, S, D] and V,
+// dO [BH, S, DV] bf16, L and delta [BH, S] float32; dK [BH, S, D] and dV
+// [BH, S, DV] are written in bf16.  Every other dtype and head width takes
+// flash_bwd.cu's dK/dV kernel; the wrapper (kernels/flash.py:
+// kernel_variant) chooses by dtype and shape alone.
 //
 // Replaces the Pallas TPU kernel of the JAX package, as flash_bwd.cu's
 // dK/dV kernel does:
@@ -22,11 +23,14 @@
 // ragged query rows and key columns are masked, and P and dS of a query
 // row past S are 0 by select, whatever its L or delta reads.
 //
-// What bounds it on this card.  At the training path's shape (smollm-135m,
-// [36, 2048, 64] bf16 per layer, causal: 7.553e7 (query, key) pairs) the
-// kernel does four products a pair (K Q^T, V dO^T, P^T dO, dS^T Q: 512
-// FLOP), 3.87e10 FLOP, 39.1 us at the 989 TFLOP/s bf16 tensor-core peak,
-// against ~57 MB (~17 us at 3.35 TB/s): bound by operations.
+// What bounds it on this card.  Four products a (query, key) pair (K Q^T
+// and dP^T over D and DV, P^T dO and dS^T Q: 2 (2 D + 2 DV) FLOP), at 989
+// TFLOP/s bf16 against Q, K, V, dO, L, delta, dK and dV moved once at 3.35
+// TB/s; every path shape is bound by operations:
+//   smollm-135m [36, 2048, 64]:            3.87e10 FLOP, 39.1 us (~57 MB, 17)
+//   phi-3-vision [32, 2624, 96]:           8.46e10 FLOP, 85.6 us (~97 MB, 29)
+//   deepseek-v2 MLA [128, 2048, 192->128]: 3.44e11 FLOP, 347.6 us (~504 MB,
+//                                          150)
 //
 // What the design does about it.  Every product runs on the tensor cores
 // with wgmma, fed by TMA (sm90.cuh):
@@ -36,33 +40,42 @@
 //     accumulators and the split operands fit without spills.  Key tiles
 //     are issued heaviest (first) first.
 //   * the producer loads the block's K and V once, then streams BQ-row
-//     tiles of Q and dO (BQ = 64, or 32 at D = 128 to keep the four
-//     accumulators in registers) and the tile's BQ values of L and delta
-//     from the diagonal query tile onward into a three-stage ring guarded
-//     by full / empty mbarriers.  L and delta come through 1-D maps over
-//     all BH * S rows (any S: a 2-D map would need S * 4 bytes to be a
-//     multiple of 16), so a tile's rows past S read the next head's
-//     values, or zeros at the end, which the mask discards.  A 1-D box
-//     must start on a 16-byte boundary, so a stage takes BQ + 4 values
+//     tiles of Q and dO and the tile's BQ values of L and delta from the
+//     diagonal query tile onward into a three-stage ring guarded by full /
+//     empty mbarriers.  BQ shrinks as the pair widens, to keep the dK and
+//     dV accumulators ((D + DV) / 2 floats a thread: 64, 96, 128, 160) and
+//     S^T, dP^T and their split operands (2 BQ) under 232 registers: BQ =
+//     64 at (64, 64), 32 at (96, 96) and (128, 128), 16 at (192, 128)
+//     (S^T and dP^T are then m64n16 products).  L and delta come through
+//     1-D maps over all BH * S rows (any S: a 2-D map would need S * 4
+//     bytes to be a multiple of 16), so a tile's rows past S read the next
+//     head's values, or zeros at the end, which the mask discards.  A 1-D
+//     box must start on a 16-byte boundary, so a stage takes BQ + 4 values
 //     from the boundary at or before the tile's first row and reads them
-//     at that offset (0-3).
+//     at that offset (0-3).  Shared memory: 112 KB at (96, 96) (K, V 32 KB
+//     each with 96-wide rows zero-padded to 128; stages of Q 8 + dO 8 KB),
+//     ~111 KB at (192, 128) (K 48, V 32; stages of Q 6 + dO 4 KB).
 //   * S^T = K Q^T and dP^T = V dO^T are SS wgmmas (all four operands
-//     K-major) into float32 registers; P^T = exp2(S^T scale log2(e) -
-//     L log2(e)) and dS^T = P^T (dP^T - delta) scale on the registers.
-//   * dV += P^T dO and dK += dS^T Q are RS wgmmas: the accumulators of P^T
-//     and dS^T are the A operands in registers, dO and Q are read MN-major
-//     (B's transpose bit) from the same shared tiles the SS products read
-//     K-major.
+//     K-major, D / 16 and DV / 16 k-steps) into float32 registers; P^T =
+//     exp2(S^T scale log2(e) - L log2(e)) and dS^T = P^T (dP^T - delta)
+//     scale on the registers.
+//   * dV += P^T dO (N = DV) and dK += dS^T Q (N = D: 192 at MLA) are RS
+//     wgmmas: the accumulators of P^T and dS^T are the A operands in
+//     registers, dO and Q are read MN-major (B's transpose bit) from the
+//     same shared tiles the SS products read K-major.
 //   * Split register operands.  Rounding P^T and dS^T to bf16 once puts dK
 //     and dV at 3.1x and 3.8x of the bf16 gate (atol 1e-3 + rtol 8e-3
 //     |want|, held by chip_smoke.py and tests/test_torch_cuda.py); split
 //     into hi = bf16(x) and lo = bf16(x - hi), each a product into the same
 //     float32 accumulator, they land at 0.60x and 0.74x
 //     (tests/test_torch_flash.py:split_operand_gate_ratios, [4, 2048, 64]
-//     on the CPU).  The split costs 1.5x the products (six passes a tile
+//     on the CPU; 0.54-0.64x at (96, 96) and (192, 128), where once reads
+//     2.3-3.5x).  The split costs 1.5x the products (six passes a tile
 //     pair instead of four) and buys the gate.
 // Not done here: overlap of one tile's exp with the next tile's products,
-// a persistent grid, and GQA without the materialised K/V repeat.
+// a persistent grid, GQA without the materialised K/V repeat, and dK's
+// columns split between warpgroups (which would let (192, 128) take BQ =
+// 32).
 //
 // Numerics: every product accumulates in float32; exp2f is the library
 // function (no --use_fast_math).  Held to the plain version by a tolerance.
@@ -90,23 +103,26 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared bytes: K [kBKV, D], V [kBKV, D], then kStages x (Q [BQ, D],
-// dO [BQ, D]), each in 64-column blocks of 128-byte rows, then kStages x
+// Shared bytes: K [kBKV, D], V [kBKV, DV], then kStages x (Q [BQ, D],
+// dO [BQ, DV]), each in 64-column blocks of 128-byte rows, then kStages x
 // (L, delta) in float32, kRowBox values each at a kRowStride pitch (a TMA
 // destination is 128-byte aligned).
-template <int D, int BQ>
+template <int D, int DV, int BQ>
 struct Layout {
-  static constexpr int kKBytes = kBKV * D * 2;
-  static constexpr int kQBytes = BQ * D * 2;
-  static constexpr int kStageBytes = 2 * kQBytes;
+  static constexpr int kKBytes = kBKV * 128 * sm90::col_blocks(D);
+  static constexpr int kVBytes = kBKV * 128 * sm90::col_blocks(DV);
+  static constexpr int kQBytes = BQ * 128 * sm90::col_blocks(D);
+  static constexpr int kDOBytes = BQ * 128 * sm90::col_blocks(DV);
+  static constexpr int kStageBytes = kQBytes + kDOBytes;
   static constexpr int kRowBox = BQ + 4;  // a tile's rows from a 16-B start
   static constexpr int kRowStride = (kRowBox * 4 + 127) / 128 * 32;
   static constexpr int kRowBytes = 2 * kRowBox * 4;  // L and delta loaded
-  static constexpr int kBytes =
-      2 * kKBytes + kStages * (kStageBytes + 2 * kRowStride * 4) + 1024;
+  static constexpr int kBytes = kKBytes + kVBytes +
+                                kStages * (kStageBytes + 2 * kRowStride * 4) +
+                                1024;
 };
 
-template <int D, int BQ>
+template <int D, int DV, int BQ>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -117,12 +133,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           __nv_bfloat16* __restrict__ dK,
                           __nv_bfloat16* __restrict__ dV, int S, float scale,
                           int causal) {
-  using L = Layout<D, BQ>;
+  using L = Layout<D, DV, BQ>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_kv, bar_full[kStages], bar_empty[kStages];
   uint8_t* k_s = sm90::align_1024(smem_raw);
   uint8_t* v_s = k_s + L::kKBytes;
-  uint8_t* qdo_s = v_s + L::kKBytes;
+  uint8_t* qdo_s = v_s + L::kVBytes;
   float* rows_s = reinterpret_cast<float*>(qdo_s + kStages * L::kStageBytes);
 
   const int bh = blockIdx.x;
@@ -144,13 +160,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one lane issues TMA
     sm90::setmaxnreg_dec<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
-      sm90::mbar_expect_tx(&bar_kv, 2 * L::kKBytes);
-      for (int c = 0; c < D / 64; ++c) {
+      sm90::mbar_expect_tx(&bar_kv, L::kKBytes + L::kVBytes);
+      for (int c = 0; c < sm90::col_blocks(D); ++c)
         sm90::tma_load_3d(k_s + c * kBKV * 128, &tm_k, &bar_kv, 64 * c, k0,
                           bh);
+      for (int c = 0; c < sm90::col_blocks(DV); ++c)
         sm90::tma_load_3d(v_s + c * kBKV * 128, &tm_v, &bar_kv, 64 * c, k0,
                           bh);
-      }
       for (int n = 0; n < nq - qt0; ++n) {
         const int s = n % kStages;
         sm90::mbar_wait(&bar_empty[s], ((n / kStages) & 1) ^ 1);
@@ -158,12 +174,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         uint8_t* q_s = qdo_s + s * L::kStageBytes;
         uint8_t* do_s = q_s + L::kQBytes;
         const int q0 = (qt0 + n) * BQ;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < sm90::col_blocks(D); ++c)
           sm90::tma_load_3d(q_s + c * BQ * 128, &tm_q, &bar_full[s], 64 * c,
                             q0, bh);
+        for (int c = 0; c < sm90::col_blocks(DV); ++c)
           sm90::tma_load_3d(do_s + c * BQ * 128, &tm_do, &bar_full[s],
                             64 * c, q0, bh);
-        }
         float* lse_s = rows_s + s * 2 * L::kRowStride;
         const int r0 = (bh * S + q0) & ~3;  // 16-byte boundary at or before
         sm90::tma_load_1d(lse_s, &tm_lse, &bar_full[s], r0);
@@ -182,9 +198,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int col = 2 * (t % 4);
     const float scale_log2 = scale * kLog2e;
 
-    float dk[D / 2], dv[D / 2];
+    float dk[D / 2], dv[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
 
     sm90::mbar_wait(&bar_kv, 0);
     for (int n = 0; n < nq - qt0; ++n) {
@@ -195,20 +213,29 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint8_t* do_s = q_s + L::kQBytes;
       // causal: a query tile wholly before this warpgroup's first key adds 0
       if (!(causal && q0 + BQ - 1 < kw0)) {
-        // S^T = K Q^T and dP^T = V dO^T: [64 keys, BQ queries]
+        // S^T = K Q^T (depth D) and dP^T = V dO^T (depth DV): [64 keys, BQ
+        // queries]
         float st[BQ / 2], dp[BQ / 2];
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int blk = kk / 4, off = (kk % 4) * 32;
-          const int a_off = blk * kBKV * 128 + wg * 64 * 128 + off;
-          const int b_off = blk * BQ * 128 + off;
-          sm90::wgmma_ss<BQ, 0>(st, sm90::desc_sw128(k_s + a_off, 16, 1024),
-                                sm90::desc_sw128(q_s + b_off, 16, 1024),
-                                kk > 0);
-          sm90::wgmma_ss<BQ, 0>(dp, sm90::desc_sw128(v_s + a_off, 16, 1024),
-                                sm90::desc_sw128(do_s + b_off, 16, 1024),
-                                kk > 0);
+          sm90::wgmma_ss<BQ, 0>(
+              st,
+              sm90::desc_sw128(
+                  k_s + blk * kBKV * 128 + wg * 64 * 128 + off, 16, 1024),
+              sm90::desc_sw128(q_s + blk * BQ * 128 + off, 16, 1024),
+              kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          const int blk = kk / 4, off = (kk % 4) * 32;
+          sm90::wgmma_ss<BQ, 0>(
+              dp,
+              sm90::desc_sw128(
+                  v_s + blk * kBKV * 128 + wg * 64 * 128 + off, 16, 1024),
+              sm90::desc_sw128(do_s + blk * BQ * 128 + off, 16, 1024),
+              kk > 0);
         }
         sm90::wgmma_commit();
         // L (in log2 units) and delta of this thread's queries
@@ -242,7 +269,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               dp[idx] = valid ? p * (dp[idx] - dlt[2 * jj + c]) * scale : 0.f;
             }
 
-        // dV += P^T dO and dK += dS^T Q, each operand split into hi + lo
+        // dV += P^T dO (N = DV) and dK += dS^T Q (N = D), each operand split
+        // into hi + lo
         uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4];
         uint32_t ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
 #pragma unroll
@@ -257,8 +285,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               sm90::desc_sw128(do_s + kk * 16 * 128, BQ * 128, 1024);
           const uint64_t d_q =
               sm90::desc_sw128(q_s + kk * 16 * 128, BQ * 128, 1024);
-          sm90::wgmma_rs<D, 1>(dv, p_hi[kk], d_do, 1);
-          sm90::wgmma_rs<D, 1>(dv, p_lo[kk], d_do, 1);
+          sm90::wgmma_rs<DV, 1>(dv, p_hi[kk], d_do, 1);
+          sm90::wgmma_rs<DV, 1>(dv, p_lo[kk], d_do, 1);
           sm90::wgmma_rs<D, 1>(dk, ds_hi[kk], d_q, 1);
           sm90::wgmma_rs<D, 1>(dk, ds_lo[kk], d_q, 1);
         }
@@ -278,27 +306,28 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) sm90::mbar_arrive(&bar_empty[s]);
     }
 
-    const long long base = static_cast<long long>(bh) * S * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int kr = kr0 + 8 * i;
       if (kr >= S) continue;
+      const long long row = static_cast<long long>(bh) * S + kr;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        const long long at =
-            base + static_cast<long long>(kr) * D + 8 * jj + col;
-        *reinterpret_cast<__nv_bfloat162*>(&dK[at]) =
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(&dK[row * D + 8 * jj + col]) =
             __floats2bfloat162_rn(dk[4 * jj + 2 * i], dk[4 * jj + 2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(&dV[at]) =
+#pragma unroll
+      for (int jj = 0; jj < DV / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(&dV[row * DV + 8 * jj + col]) =
             __floats2bfloat162_rn(dv[4 * jj + 2 * i], dv[4 * jj + 2 * i + 1]);
-      }
     }
   }
 }
 
-// BQ = 64 at D = 64; 32 at D = 128, where dK and dV take 64 float32
-// registers each and the S^T / dP^T accumulators must stay small.
-template <int D, int BQ>
+// BQ = 64 at D = DV = 64; 32 at (128, 128) and (96, 96); 16 at (192, 128).
+// The dK and dV accumulators take (D + DV) / 2 float32 registers a thread
+// (64, 128, 96, 160), and S^T, dP^T and their split operands 2 BQ more,
+// so BQ shrinks as the pair widens to stay under 232 without spills.
+template <int D, int DV, int BQ>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv, int bh,
            int s, float scale, int causal, cudaStream_t stream) {
@@ -306,19 +335,19 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const long long rows = static_cast<long long>(bh) * s;
   int err = sm90::encode_bf16_3d(&tm_q, q, bh, s, D, BQ);
   if (!err) err = sm90::encode_bf16_3d(&tm_k, k, bh, s, D, kBKV);
-  if (!err) err = sm90::encode_bf16_3d(&tm_v, v, bh, s, D, kBKV);
-  if (!err) err = sm90::encode_bf16_3d(&tm_do, dout, bh, s, D, BQ);
-  const int box = Layout<D, BQ>::kRowBox;
+  if (!err) err = sm90::encode_bf16_3d(&tm_v, v, bh, s, DV, kBKV);
+  if (!err) err = sm90::encode_bf16_3d(&tm_do, dout, bh, s, DV, BQ);
+  const int box = Layout<D, DV, BQ>::kRowBox;
   if (!err) err = sm90::encode_f32_1d(&tm_lse, lse, rows, box);
   if (!err) err = sm90::encode_f32_1d(&tm_delta, delta, rows, box);
   if (err) return err;
-  const int bytes = Layout<D, BQ>::kBytes;
+  const int bytes = Layout<D, DV, BQ>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_sm90_kernel<D, BQ>,
+      flash_bwd_dkv_sm90_kernel<D, DV, BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(bh, (s + kBKV - 1) / kBKV);
-  flash_bwd_dkv_sm90_kernel<D, BQ><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dkv_sm90_kernel<D, DV, BQ><<<grid, kThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta,
       static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), s, scale, causal);
@@ -329,21 +358,32 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// q, k, v, dout, dk, dv: [bh, s, d] bf16, contiguous, 16-byte aligned; d is
-// 64 or 128; lse, delta: [bh, s] float32, 16-byte aligned; bh * s < 2^31
-// (TMA coordinates are 32-bit).
+// q, k, dk: [bh, s, d] and v, dout, dv: [bh, s, dv] bf16, contiguous,
+// 16-byte aligned; (d, dv) is (64, 64), (128, 128), (96, 96) or (192, 128);
+// lse, delta: [bh, s] float32, 16-byte aligned; bh * s < 2^31 (TMA
+// coordinates are 32-bit).
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int bh, int s,
-                       int d, float scale, int causal, void* stream) {
+                       int d, int d_v, float scale, int causal,
+                       void* stream) {
   if (bh < 1 || s < 1 || (s + kBKV - 1) / kBKV > 65535 ||
-      static_cast<long long>(bh) * s > 2147483647LL || (d != 64 && d != 128))
+      static_cast<long long>(bh) * s > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, s,
-                                  scale, causal, st)
-                 : launch<128, 32>(q, k, v, dout, lse, delta, dk, dv, bh, s,
-                                   scale, causal, st);
+  if (d == 64 && d_v == 64)
+    return launch<64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, s,
+                              scale, causal, st);
+  if (d == 128 && d_v == 128)
+    return launch<128, 128, 32>(q, k, v, dout, lse, delta, dk, dv, bh, s,
+                                scale, causal, st);
+  if (d == 96 && d_v == 96)
+    return launch<96, 96, 32>(q, k, v, dout, lse, delta, dk, dv, bh, s,
+                              scale, causal, st);
+  if (d == 192 && d_v == 128)
+    return launch<192, 128, 16>(q, k, v, dout, lse, delta, dk, dv, bh, s,
+                                scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* flash_bwd_dkv_sm90_error_string(int code) {

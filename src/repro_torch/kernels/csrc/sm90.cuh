@@ -12,7 +12,8 @@
 //   * setmaxnreg, to move registers from a producer warpgroup to consumers.
 //   * wgmma: shared-memory matrix descriptors for the 128-byte swizzle, and
 //     mma_async m64nNk16 bf16 -> f32 in two forms: SS (A and B from shared
-//     memory; N = 32, 64, 128) and RS (A from registers; N = 64, 128), with
+//     memory; N = 16, 32, 64, 128) and RS (A from registers; N = 64, 96,
+//     128, 192), with
 //     B's transpose bit for MN-major operands; fence / commit_group /
 //     wait_group, and register fences that keep the compiler from touching
 //     an accumulator or an A fragment while a product is in flight.
@@ -27,9 +28,15 @@
 // box with 128-byte swizzle: 16-byte chunk c of row r sits at chunk
 // c ^ (r % 8), in 1024-byte atoms of 8 rows, so every tile starts on a
 // 1024-byte boundary.  A tile of 128 columns is two such tiles ("column
-// blocks") one after the other.  Read K-major (the contraction runs along
-// the 64 columns), a descriptor covers 8-row groups 1024 bytes apart (SBO)
-// and k-step kk starts 32 kk bytes into the column block; read MN-major
+// blocks") one after the other, and a tile of 96 or 192 columns two or
+// three: the map's columns end at 96 or 192, so TMA writes zeros into
+// columns 96-127 of a 96-column tile's second block (a box always moves
+// its whole 128-byte rows, and the mbarrier counts them).  A K-major
+// product over 96 columns takes 6 k-steps and never reads the zero half;
+// an MN-major product of N = 96 reads half of the second block.  Read
+// K-major (the contraction runs along the 64 columns), a descriptor covers
+// 8-row groups 1024 bytes apart (SBO) and k-step kk starts 32 kk bytes into
+// the column block; read MN-major
 // (the contraction runs along the rows, B's transpose bit set), 8-row
 // groups along K are 1024 bytes apart (SBO), column blocks along N are
 // one tile apart (LBO), and k-step kk starts 16 kk rows (2048 kk bytes) in.
@@ -121,6 +128,12 @@ inline int encode_f32_1d(CUtensorMap* map, const void* base, long long n,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// 64-column blocks of a shared tile of `cols` columns (96 -> 2, the second
+// half zeros; 192 -> 3).
+__host__ __device__ constexpr int col_blocks(int cols) {
+  return (cols + 63) / 64;
 }
 
 // ---- device: shared memory, mbarriers, TMA ----------------------------------
@@ -276,8 +289,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "N is 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : SM90_D8(0)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -322,7 +344,8 @@ template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
-  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192,
+                "N is 64, 96, 128 or 192");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -333,6 +356,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
         "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(kTransB));
+  } else if constexpr (N == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32),
+          SM90_D8(40)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(accumulate), "n"(kTransB));
   } else if constexpr (N == 128) {
@@ -350,6 +388,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24),
           SM90_D8(32), SM90_D8(40), SM90_D8(48), SM90_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(kTransB));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32),
+          SM90_D8(40), SM90_D8(48), SM90_D8(56), SM90_D8(64), SM90_D8(72),
+          SM90_D8(80), SM90_D8(88)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(accumulate), "n"(kTransB));
   }

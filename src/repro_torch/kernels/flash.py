@@ -15,9 +15,12 @@ Pallas kernels:
   :func:`flash_bwd` runs dq, then dk/dv.
 
 Which kernel a call takes is :func:`kernel_variant`'s rule on dtype and
-shape alone: ``"sm90"`` (the tensor-core kernel) for bfloat16 with
-d = dv in {64, 128}, ``"simt"`` (the CUDA-core kernel) for everything else.
-A build or launch failure raises; nothing falls back.  Each source's header
+shape alone, per entry (:data:`SM90_PAIRS`): ``"sm90"`` (the tensor-core
+kernel) for bfloat16 with (d, dv) in {(64, 64), (128, 128)} at every entry,
+and at (96, 96) (phi-3-vision) and (192, 128) (DeepSeek-V2's MLA) for the
+forward entries and dk/dv, whose dq stays on the CUDA cores; ``"simt"``
+(the CUDA-core kernel) for everything else, float32 included.  A build or
+launch failure raises; nothing falls back.  Each source's header
 says what bounds it on the card and what its design does about that.
 
 Each source is built with ``nvcc`` into its own library under
@@ -51,9 +54,14 @@ SOURCES = {stem: CSRC / f"{stem}.cu" for stem in STEMS}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_HEAD_DIM = 256
-SM90_HEAD_DIMS = (64, 128)
 ENTRIES = ("flash_fwd_lse", "flash_attention_bhsd", "flash_bwd_dq",
            "flash_bwd_dkv")
+# bf16 (d, dv) -> the entries whose tensor-core kernel takes that pair
+SM90_PAIRS = {(64, 64): ENTRIES, (128, 128): ENTRIES,
+              (96, 96): ("flash_fwd_lse", "flash_attention_bhsd",
+                         "flash_bwd_dkv"),
+              (192, 128): ("flash_fwd_lse", "flash_attention_bhsd",
+                           "flash_bwd_dkv")}
 VARIANTS = ("sm90", "simt")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,12 +74,14 @@ def kernel_variant(entry: str, dtype: torch.dtype, d: int, dv: int) -> str:
     """The kernel ``entry`` launches for a CUDA call: ``"sm90"`` (the
     tensor-core kernel, ``csrc/flash_fwd_sm90.cu``,
     ``csrc/flash_bwd_dq_sm90.cu`` or ``csrc/flash_bwd_dkv_sm90.cu``) at
-    bfloat16 with d = dv in {64, 128}; ``"simt"`` (the float32 CUDA-core
-    kernel of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise.
-    The same rule for every entry, on dtype and shape only."""
+    bfloat16 where :data:`SM90_PAIRS` lists (d, dv) for ``entry``: (64, 64)
+    and (128, 128) for every entry, (96, 96) and (192, 128) for the forward
+    entries and dk/dv but not dq; ``"simt"`` (the float32 CUDA-core kernel
+    of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise.  A rule
+    on entry, dtype and shape only."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown flash entry {entry!r}")
-    if dtype == torch.bfloat16 and d == dv and d in SM90_HEAD_DIMS:
+    if dtype == torch.bfloat16 and entry in SM90_PAIRS.get((d, dv), ()):
         return "sm90"
     return "simt"
 
@@ -112,12 +122,12 @@ def _load(stem: str) -> ctypes.CDLL:
                 "flash_bwd_dq": [vp] * 7 + [ci] * 5 + [cf, ci, vp],
                 "flash_bwd_dkv": [vp] * 8 + [ci] * 5 + [cf, ci, vp]},
             "flash_fwd_sm90": {
-                "flash_fwd_sm90": [vp] * 5 + [ci] * 3 + [cf, ci, vp],
-                "flash_sm90_probe": [vp] * 5 + [ci, vp]},
+                "flash_fwd_sm90": [vp] * 5 + [ci] * 4 + [cf, ci, vp],
+                "flash_sm90_probe": [vp] * 5 + [ci, ci, vp]},
             "flash_bwd_dq_sm90": {
                 "flash_bwd_dq_sm90": [vp] * 7 + [ci] * 3 + [cf, ci, vp]},
             "flash_bwd_dkv_sm90": {
-                "flash_bwd_dkv_sm90": [vp] * 8 + [ci] * 3 + [cf, ci, vp]},
+                "flash_bwd_dkv_sm90": [vp] * 8 + [ci] * 4 + [cf, ci, vp]},
         }[stem]
         for name, argtypes in signatures.items():
             getattr(lib, name).argtypes = argtypes
@@ -209,8 +219,8 @@ def _launch(q, k, v, scale: float, causal: bool, entry: str,
             lib = _load("flash_fwd_sm90")
             code = lib.flash_fwd_sm90(q.data_ptr(), k.data_ptr(),
                                       v.data_ptr(), o.data_ptr(), lse_ptr,
-                                      bh, s, d, float(scale), int(causal),
-                                      stream)
+                                      bh, s, d, dv, float(scale),
+                                      int(causal), stream)
         else:
             lib = _load("flash_fwd")
             code = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -222,28 +232,35 @@ def _launch(q, k, v, scale: float, causal: bool, entry: str,
     return o, lse
 
 
+PROBE_WIDTHS = ((64, 64), (128, 128), (96, 96), (192, 128), (192, 192))
+
+
 def sm90_tile_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core kernels' two tile products alone, for the card's
     tests: ``(a b^T, bf16(a b^T) c)`` in float32 for contiguous bf16 CUDA
-    tensors a, b, c [64, d], d in {64, 128}.  The first is an SS ``wgmma``
-    (both operands K-major in shared memory), the second an RS ``wgmma``
-    (A from registers, c read MN-major); all three tiles arrive by TMA."""
-    d = a.shape[1]
-    for x in (a, b, c):
-        if x.shape != (64, d) or d not in SM90_HEAD_DIMS \
+    tensors a, b [64, d] and c [64, n], (d, n) in :data:`PROBE_WIDTHS`.
+    The first is an SS ``wgmma`` of K-depth d (both operands K-major in
+    shared memory), the second an RS ``wgmma`` of N = n (A from registers,
+    c read MN-major); all three tiles arrive by TMA, as the kernels lay
+    them out (a 96-column tile in two 64-column blocks, the second half
+    zeros)."""
+    d, n = a.shape[1], c.shape[1]
+    for x, cols in ((a, d), (b, d), (c, n)):
+        if x.shape != (64, cols) or (d, n) not in PROBE_WIDTHS \
                 or x.dtype != torch.bfloat16 or x.device.type != "cuda" \
                 or not x.is_contiguous():
-            raise ValueError("sm90_tile_probe takes contiguous bf16 CUDA "
-                             "tensors [64, d], d in {64, 128}")
+            raise ValueError(f"sm90_tile_probe takes contiguous bf16 CUDA "
+                             f"tensors a, b [64, d] and c [64, n], (d, n) in "
+                             f"{PROBE_WIDTHS}")
     _check_tma(a=a, b=b, c=c)
     s_out = torch.empty((64, 64), dtype=torch.float32, device=a.device)
-    o_out = torch.empty((64, d), dtype=torch.float32, device=a.device)
+    o_out = torch.empty((64, n), dtype=torch.float32, device=a.device)
     lib = _load("flash_fwd_sm90")
     with torch.cuda.device(a.device):
         code = lib.flash_sm90_probe(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), s_out.data_ptr(),
-            o_out.data_ptr(), d,
+            o_out.data_ptr(), d, n,
             torch.cuda.current_stream(a.device).cuda_stream)
     _raise_if_failed(lib, code, "sm90 tile probe")
     return s_out, o_out
@@ -313,7 +330,8 @@ def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs, scale: float,
             _check_tma(**tma)
             stem = f"{entry}_sm90"
             lib = _load(stem)
-            code = getattr(lib, stem)(*ptrs, bh, s, d, float(scale),
+            widths = (d,) if entry == "flash_bwd_dq" else (d, dv)
+            code = getattr(lib, stem)(*ptrs, bh, s, *widths, float(scale),
                                       int(causal), stream)
         else:
             lib = _load("flash_bwd")

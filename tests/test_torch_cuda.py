@@ -10,9 +10,9 @@ against the CPU port, a float32 train step of each non-dense smoke
 config against the CPU port, ``grad_compress`` card == CPU bit for bit, a
 bf16 step under ``remat_policy="dots"`` against "full", and the
 flash-attention kernels (forward, dq, dk/dv, each on the CUDA cores and
-the tensor cores, the CUDA-core backward in bf16 at head widths 96 and
-192 -> 128; the tensor-core tile products alone) against their plain
-versions.  Marked ``cuda``; each test skips without a card.
+the tensor cores; in bf16 at head widths 96 and 192 -> 128 the
+tensor-core forward and dk/dv and the CUDA-core dq; the tensor-core tile
+products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -403,16 +403,62 @@ def test_sm90_kernels_match_plain_on_card(cuda, no_tf32, d, causal, s):
                 flash.launch_count(entry, "simt")) == (1, 0)
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d):
+@pytest.mark.parametrize("s", [2048, 1000, 130, 64, 1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", [(96, 96), (192, 128)])
+def test_sm90_forward_and_dkv_at_the_new_widths_on_card(cuda, no_tf32, d, dv,
+                                                        causal, s):
+    """bf16 at phi-3-vision's (96, 96) and MLA's (192, 128): the
+    tensor-core forward (both entries) and dk/dv, and the CUDA-core dq,
+    against their plain versions at the unchanged bf16 gates, with the
+    launches counted per variant."""
+    from repro_torch.kernels import flash
+    bh = 4 if s == 2048 else 3
+    g = torch.Generator(device=cuda).manual_seed(s + d + dv + causal)
+    q, k = (torch.randn(bh, s, d, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn(bh, s, dv, device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    kw = dict(scale=d ** -0.5, causal=causal)
+    flash.reset_launch_count()
+    o, lse = flash.flash_fwd_lse(q, k, v, **kw)
+    o2 = flash.flash_attention_bhsd(q, k, v, **kw)
+    want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(want_o, do)
+    dk, dv_ = flash.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    dq = flash.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, want_lse, delta,
+                                             **kw)
+    want_dq = ref.flash_bwd_dq_ref(q, k, v, do, want_lse, delta, **kw)
+    assert o.shape == (bh, s, dv) and dk.shape == (bh, s, d) \
+        and dv_.shape == (bh, s, dv)
+    _close(o, want_o, *FLASH_TOL[torch.bfloat16])
+    _close(o2, want_o, *FLASH_TOL[torch.bfloat16])
+    _close(lse, want_lse, 1e-5)
+    _close(dk, want_dk, *BWD_TOL[torch.bfloat16])
+    _close(dv_, want_dv, *BWD_TOL[torch.bfloat16])
+    _close(dq, want_dq, *BWD_TOL[torch.bfloat16])
+    for entry in flash.ENTRIES:
+        want = (0, 1) if entry == "flash_bwd_dq" else (1, 0)
+        assert (flash.launch_count(entry, "sm90"),
+                flash.launch_count(entry, "simt")) == want, entry
+
+
+@pytest.mark.parametrize("d,n", [(64, 64), (128, 128), (96, 96),
+                                 (192, 128), (192, 192)])
+def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d, n):
     """The tensor-core kernels' tile products alone: S = A B^T as an SS
-    wgmma (both K-major, TMA-loaded with 128-byte swizzle) against
-    torch.matmul, and bf16(S) C as an RS wgmma with C read MN-major.
+    wgmma of K-depth d (both K-major, TMA-loaded with 128-byte swizzle)
+    against torch.matmul, and bf16(S) C as an RS wgmma of N = n with C
+    read MN-major; at 96 and 192 as well as 64 and 128 (a 96-column tile
+    is two 64-column blocks, the second half zeros).
     Exact products summed in float32: within float32 rounding."""
     from repro_torch.kernels import flash
-    g = torch.Generator(device=cuda).manual_seed(d)
-    a, b, c = (torch.randn(64, d, device=cuda, generator=g).bfloat16()
-               for _ in range(3))
+    g = torch.Generator(device=cuda).manual_seed(d + n)
+    a, b = (torch.randn(64, d, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    c = torch.randn(64, n, device=cuda, generator=g).bfloat16()
     s_out, o_out = flash.sm90_tile_probe(a, b, c)
     torch.cuda.synchronize()
     _close(s_out, torch.matmul(a.float(), b.float().T), 1e-4, 1e-5)
@@ -422,21 +468,26 @@ def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d):
 
 def test_flash_bwd_is_deterministic_on_card(cuda):
     """No atomics: the gradients are the same bits on every run, through
-    the tensor-core dq and dk/dv kernels at bf16, d = 64 and 128, and the
-    CUDA-core ones at float32."""
+    the tensor-core dq and dk/dv kernels at bf16, d = 64 and 128, the
+    tensor-core dk/dv and the CUDA-core dq at bf16 (96, 96) and (192, 128),
+    and the CUDA-core ones at float32."""
     from repro_torch.kernels import flash
     g = torch.Generator(device=cuda).manual_seed(0)
-    for d, dtype, variant in ((64, torch.bfloat16, "sm90"),
-                              (128, torch.bfloat16, "sm90"),
-                              (64, torch.float32, "simt")):
-        q, k, v, do = (torch.randn(4, 512, d, device=cuda, generator=g)
-                       .to(dtype) for _ in range(4))
+    for d, dv, dtype, dkv, dq in ((64, 64, torch.bfloat16, "sm90", "sm90"),
+                                  (128, 128, torch.bfloat16, "sm90", "sm90"),
+                                  (96, 96, torch.bfloat16, "sm90", "simt"),
+                                  (192, 128, torch.bfloat16, "sm90", "simt"),
+                                  (64, 64, torch.float32, "simt", "simt")):
+        q, k = (torch.randn(4, 512, d, device=cuda, generator=g).to(dtype)
+                for _ in range(2))
+        v, do = (torch.randn(4, 512, dv, device=cuda, generator=g).to(dtype)
+                 for _ in range(2))
         o, lse = flash.flash_fwd_lse(q, k, v, scale=0.125)
         flash.reset_launch_count()
         a = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
         b = flash.flash_bwd(q, k, v, o, lse, do, scale=0.125)
-        assert flash.launch_count("flash_bwd_dkv", variant) == 2
-        assert flash.launch_count("flash_bwd_dq", variant) == 2
+        assert flash.launch_count("flash_bwd_dkv", dkv) == 2
+        assert flash.launch_count("flash_bwd_dq", dq) == 2
         for x, y in zip(a, b):
             assert torch.equal(x, y)
 
@@ -694,18 +745,20 @@ def test_family_smoke_model_on_card_matches_cpu(cuda, no_tf32, arch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_forward_at_head_width_96_on_card(cuda, no_tf32, dtype):
-    """phi-3-vision's head width (96) takes the CUDA-core forward in bf16
-    too; against its plain version at a ragged causal length."""
+    """phi-3-vision's head width (96) takes the tensor-core forward in bf16
+    and the CUDA-core one in float32; against its plain version at a
+    ragged causal length."""
     from repro_torch.kernels import flash
-    assert flash.kernel_variant("flash_fwd_lse", torch.bfloat16, 96,
-                                96) == "simt"
+    variant = "sm90" if dtype == torch.bfloat16 else "simt"
+    assert flash.kernel_variant("flash_fwd_lse", dtype, 96, 96) == variant
     g = torch.Generator(device=cuda).manual_seed(96)
     q, k, v = (torch.randn(4, 656, 96, device=cuda, generator=g).to(dtype)
                for _ in range(3))
-    n0 = flash.launch_count("flash_fwd_lse", "simt")
+    flash.reset_launch_count()
     o, lse = flash.flash_fwd_lse(q, k, v, scale=96 ** -0.5, causal=True)
     torch.cuda.synchronize()
-    assert flash.launch_count("flash_fwd_lse", "simt") == n0 + 1
+    assert flash.launch_count("flash_fwd_lse", variant) == 1
+    assert flash.launch_count("flash_fwd_lse") == 1
     want_o, want_lse = ref.flash_fwd_lse_ref(q, k, v, scale=96 ** -0.5,
                                              causal=True)
     _close(o, want_o, *FLASH_TOL[dtype])

@@ -25,7 +25,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import flash, ops  # noqa: E402
 
 SHAPES = [(2, 256, 64, 64, 128), (1, 256, 192, 128, 64),
-          (2, 128, 64, 64, 128)]       # bh, S, d, dv, the reference's bq
+          (2, 128, 64, 64, 128),
+          (1, 256, 96, 96, 128)]       # bh, S, d, dv, the reference's bq
 O_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -305,16 +306,32 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
     ("flash_bwd_dq", "bfloat16", 32, 32, "simt"),
     ("flash_fwd_lse", "float32", 64, 64, "simt"),
     ("flash_bwd_dkv", "float32", 128, 128, "simt"),
-    ("flash_fwd_lse", "bfloat16", 192, 128, "simt"),
-    ("flash_bwd_dkv", "bfloat16", 192, 128, "simt"),
+    ("flash_fwd_lse", "bfloat16", 192, 128, "sm90"),
+    ("flash_attention_bhsd", "bfloat16", 192, 128, "sm90"),
+    ("flash_bwd_dkv", "bfloat16", 192, 128, "sm90"),
+    ("flash_fwd_lse", "bfloat16", 96, 96, "sm90"),
+    ("flash_attention_bhsd", "bfloat16", 96, 96, "sm90"),
+    ("flash_bwd_dkv", "bfloat16", 96, 96, "sm90"),
+    ("flash_bwd_dq", "bfloat16", 96, 96, "simt"),
+    ("flash_bwd_dq", "bfloat16", 192, 128, "simt"),
+    ("flash_fwd_lse", "float32", 96, 96, "simt"),
+    ("flash_bwd_dkv", "float32", 192, 128, "simt"),
+    ("flash_fwd_lse", "bfloat16", 192, 192, "simt"),
+    ("flash_bwd_dkv", "bfloat16", 192, 192, "simt"),
+    ("flash_fwd_lse", "bfloat16", 96, 64, "simt"),
+    ("flash_bwd_dkv", "bfloat16", 96, 64, "simt"),
+    ("flash_fwd_lse", "bfloat16", 128, 96, "simt"),
+    ("flash_bwd_dkv", "bfloat16", 128, 96, "simt"),
     ("flash_fwd_lse", "bfloat16", 32, 32, "simt"),
     ("flash_bwd_dkv", "bfloat16", 32, 32, "simt"),
     ("flash_attention_bhsd", "bfloat16", 256, 256, "simt"),
     ("flash_fwd_lse", "bfloat16", 64, 32, "simt")])
 def test_kernel_variant_is_a_rule_on_dtype_and_shape(entry, dtype, d, dv,
                                                      variant):
-    """bf16 with d = dv in {64, 128} takes the tensor-core kernel for every
-    entry (the forward entries, dq and dk/dv); everything else the
+    """bf16 with (d, dv) in {(64, 64), (128, 128)} takes the tensor-core
+    kernel for every entry (the forward entries, dq and dk/dv); bf16 at
+    (96, 96) and (192, 128) takes it for the forward entries and dk/dv,
+    with dq on the CUDA cores; everything else, float32 included, the
     CUDA-core kernel."""
     assert flash.kernel_variant(entry, TDT[dtype], d, dv) == variant
 
@@ -372,17 +389,20 @@ def test_flash_bwd_ref_builds_probabilities_once(monkeypatch):
     assert calls == [(0.25, True)]
 
 
-def split_operand_gate_ratios(bh=4, s=2048, d=64, seed=0):
+def split_operand_gate_ratios(bh=4, s=2048, d=64, dv=None, seed=0):
     """The numerics behind the tensor-core backward kernels' split operands,
     on the CPU: max |got - want| / (atol + rtol |want|) at the bf16
     backward gate (1e-3, 8e-3) for dk, dv and dq, when P and dS enter
     their products (P^T dO, dS^T Q, dS K) rounded to bf16 once ("once")
     or split into hi = bf16(x) and lo = bf16(x - hi) ("split"); want is
     the float32 plain math, every result rounded to bf16.  bf16
-    standard-normal q, k, v, do, causal."""
+    standard-normal q, k [bh, s, d] and v, do [bh, s, dv] (dv = d by
+    default), causal."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
-        (bh, s, d), dtype=np.float32)).bfloat16() for _ in range(4))
+        (bh, s, width), dtype=np.float32)).bfloat16()
+        for width in (d, d, dv, dv))
     scale = 1 / math.sqrt(d)
     o, lse = ref.flash_fwd_lse_ref(q, k, v, scale=scale)
     delta = ref.flash_bwd_delta(o, do)
@@ -419,6 +439,17 @@ def test_split_operands_hold_the_bf16_backward_gate():
     assert ratios["once"][2] > 2.0 and ratios["split"][2] < 0.7, ratios
 
 
+@pytest.mark.parametrize("d,dv", [(96, 96), (192, 128)])
+def test_split_dkv_operands_hold_the_bf16_gate_at_the_new_widths(d, dv):
+    """The same at phi-3-vision's (96, 96) and MLA's (192, 128), where the
+    tensor-core dk/dv kernel runs and dq stays on the CUDA cores: dk and dv
+    with P^T and dS^T rounded once break the gate (2.46 / 3.26 and 2.25 /
+    3.47), split they hold it (0.54 / 0.64 and 0.59 / 0.63)."""
+    ratios = split_operand_gate_ratios(d=d, dv=dv)
+    assert min(ratios["once"][:2]) > 1.5, ratios
+    assert max(ratios["split"][:2]) < 1.0, ratios
+
+
 def test_split_dq_operand_holds_the_bf16_gate_at_head_dim_128():
     """The same at d = 128, the other head width of the tensor-core
     kernels: dQ with dS rounded once reads 1.88 of the gate, split 0.68
@@ -428,23 +459,27 @@ def test_split_dq_operand_holds_the_bf16_gate_at_head_dim_128():
     assert max(ratios["split"]) < 1.0, ratios
 
 
-def rounded_p_forward_gate_share(gates, bh=4, s=2048, d=64, seed=0):
+def rounded_p_forward_gate_share(gates, bh=4, s=2048, d=64, dv=None,
+                                 seed=0):
     """The numerics of the tensor-core forward, on the CPU: max |got -
     want| / (atol + rtol |want|) at each (atol, rtol) of ``gates``, where
-    got is the kernel's online softmax over key tiles (128 keys at d = 64, 64 at
-    d = 128) with P rounded to bf16 once before P V and l summing the
-    float32 P, and want the plain version; both O rounded to bf16.  bf16
-    standard-normal q, k, v, causal."""
+    got is the kernel's online softmax over its key tiles (128 keys at
+    d = dv = 64, 64 at the wider pairs) with P rounded to bf16 once before
+    P V and l summing the float32 P, and want the plain version; both O
+    rounded to bf16.  bf16 standard-normal q, k [bh, s, d] and v [bh, s,
+    dv] (dv = d by default), causal."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(
-        (bh, s, d), dtype=np.float32)).bfloat16() for _ in range(3))
+        (bh, s, width), dtype=np.float32)).bfloat16()
+        for width in (d, d, dv))
     scale = 1 / math.sqrt(d)
     want = ref.flash_fwd_lse_ref(q, k, v, scale=scale)[0].float()
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((bh, s, 1), -math.inf)
-    l, o = torch.zeros(bh, s, 1), torch.zeros(bh, s, d)
+    l, o = torch.zeros(bh, s, 1), torch.zeros(bh, s, dv)
     pos = torch.arange(s)
-    bk = 128 if d == 64 else 64
+    bk = 128 if d == dv == 64 else 64
     for k0 in range(0, s, bk):
         sc = (qf @ kf[:, k0:k0 + bk].transpose(1, 2)) * scale
         sc = sc.masked_fill(pos[k0:k0 + bk] > pos[:, None], -math.inf)
@@ -466,3 +501,12 @@ def test_rounded_p_forward_within_the_bf16_gate():
     prefill's head width, and far inside the old 3e-2 one."""
     new, old = rounded_p_forward_gate_share([(4e-3, 1.6e-2), (3e-2, 3e-2)])
     assert new < 0.8 and old < 0.25, (new, old)
+
+
+@pytest.mark.parametrize("d,dv", [(96, 96), (192, 128)])
+def test_rounded_p_forward_within_the_bf16_gate_at_the_new_widths(d, dv):
+    """The same at phi-3-vision's (96, 96) and MLA's (192, 128), the widths
+    the tensor-core forward took in bf16 after d = dv in {64, 128}, at its
+    64-key tiles: O reads under 0.8 of the gate (0.43 and 0.48)."""
+    (share,) = rounded_p_forward_gate_share([(4e-3, 1.6e-2)], d=d, dv=dv)
+    assert share < 0.8, share
