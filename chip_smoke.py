@@ -59,12 +59,12 @@ Phases, each of which fails the run by exception:
      ``torch.profiler``;
  10. hold the flash backward kernels against their plain version on the
      card: the tensor-core dq and dk/dv (``csrc/flash_bwd_dq_sm90.cu``,
-     ``csrc/flash_bwd_dkv_sm90.cu``; bf16, d = dv in {64, 128}, and dk/dv
-     also at (96, 96) and (192, 128)) and the CUDA-core dq and dk/dv
+     ``csrc/flash_bwd_dkv_sm90.cu``; bf16 at (d, dv) in {(64, 64),
+     (128, 128), (96, 96), (192, 128)}) and the CUDA-core dq and dk/dv
      (``csrc/flash_bwd.cu``), at the training shape ([36, 2048, 64] bf16,
      all four kernels), at float32 shapes with d = dv and d != dv
      (192 -> 128), at bf16 d = 128, at bf16 d = 96 and 192 -> 128 (the
-     tensor-core dk/dv and the CUDA-core dq, at [32, 2624, 96] and
+     tensor-core dq and dk/dv, at [32, 2624, 96] and
      [128, 2048, 192 -> 128], ragged, short and not causal), at ragged and
      short lengths, causal and not;
  11. drive the training path at smollm-135m's full width (random weights
@@ -177,9 +177,10 @@ Phases, each of which fails the run by exception:
      with their bound and SDPA; ``launch/serve.run("whisper_base")``'s
      plan on the card equal to the CPU port's bit for bit;
  19. every family's training on the card: the bf16 dk/dv (tensor-core by
-     rule, CUDA-core forced) and the CUDA-core dq at phi-3-vision's
-     [32, 2624, 96] and MLA's [128, 2048, 192 -> 128] against their plain
-     versions, timed with their bounds and SDPA's backward; the six non-dense smoke configs in float32 (TF32 off,
+     rule, CUDA-core forced) and the dq (the same two) at phi-3-vision's
+     [32, 2624, 96], MLA's [128, 2048, 192 -> 128] and olmoe's
+     [64, 2048, 128] against their plain versions, timed with their
+     bounds and SDPA's backward; the six non-dense smoke configs in float32 (TF32 off,
      flash, remat), card against the CPU port (the MoE expert choices
      equal first, then the loss at rtol 1e-5 and every gradient leaf at
      atol 1e-5 + rtol 1e-4), with phi-3-vision (also at full width, one
@@ -192,8 +193,8 @@ Phases, each of which fails the run by exception:
      ``train_depths``' memory reckoning allows (weights from phases
      17-18, seed 0), every launch counter set to 0 before each step and
      read after it (per layer two forwards, one dq, one dk/dv:
-     tensor-core for olmoe; for phi-3-vision the forwards and dk/dv on
-     the tensor cores and dq on the CUDA cores; none for the others),
+     tensor-core for olmoe and phi-3-vision, none of a CUDA-core kernel;
+     none for the others),
      finite, timed, peak memory, a profiled step (the recurrent families'
      at S = 64; phi-3-vision's with the flash kernels' share of busy
      time); ``grad_compress`` over one olmoe layer's bf16 gradients, card
@@ -438,8 +439,8 @@ def log_flash_share(label: str, prof: dict | None, wall_ms: float,
              else f"{prof['flash_us'] / prof['busy_us']:.1%} of busy "
              f"({prof['flash_us'] / 1e3:.2f} of {prof['busy_us'] / 1e3:.2f}"
              f" ms)")
-    log(f"  {label}: wall {wall_ms:.2f} ms; flash kernels {share}; on "
-        f"the CUDA-core kernels (PERF.md, same card): {before}")
+    log(f"  {label}: wall {wall_ms:.2f} ms; flash kernels {share}; "
+        f"earlier (PERF.md, same card): {before}")
 
 
 # -- phases 5-9: the serving path (flash attention, prefill, decode) ---------
@@ -835,9 +836,9 @@ def serving_phases(dev, smi: str) -> list[dict]:
 # -- phases 10-12: the training path (flash backward, train step) ------------
 
 # (bh, S, d, dv, dtype, causal); the first is the training path's per-layer
-# shape; each entry's kernel is flash.kernel_variant's (bf16 at (96, 96)
-# and (192, 128): the tensor-core dk/dv and the CUDA-core dq), and at the
-# first shape both variants of each run
+# shape; each entry's kernel is flash.kernel_variant's (bf16 at (64, 64),
+# (128, 128), (96, 96) and (192, 128): the tensor-core dq and dk/dv), and
+# at the first shape both variants of each run
 BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (8, 256, 64, 64, "float32", True),
              (2, 256, 192, 128, "float32", True),
@@ -853,8 +854,8 @@ BWD_CASES = [(36, 2048, 64, 64, "bfloat16", True),
              (2, 1000, 64, 64, "bfloat16", False),
              (2, 300, 128, 128, "bfloat16", False),
              # bf16 at phi-3-vision's 96 and MLA's 192 -> 128: the
-             # tensor-core dk/dv and the CUDA-core dq, at the train paths'
-             # shapes, ragged, not causal and short
+             # tensor-core dq and dk/dv, at the train paths' shapes,
+             # ragged, not causal and short
              (32, 2624, 96, 96, "bfloat16", True),
              (128, 2048, 192, 128, "bfloat16", True),
              (4, 1000, 96, 96, "bfloat16", True),
@@ -949,11 +950,8 @@ def training_phases(dev, smi: str) -> list[dict]:
         want_dk, want_dv = ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                  **kw)
         torch.cuda.synchronize()
-        variant = flash.kernel_variant("flash_bwd_dkv", q.dtype, d, dv)
-        dq_variant = flash.kernel_variant("flash_bwd_dq", q.dtype, d, dv)
-        kernels = (variant if dq_variant == variant
-                   else f"dq {dq_variant}, dk/dv {variant}")
-        what = (f"flash_bwd ({kernels}) {dtype} [{bh},{s},{d}->{dv}] "
+        variant = flash.kernel_variant("flash_bwd_dq", q.dtype, d, dv)
+        what = (f"flash_bwd ({variant}) {dtype} [{bh},{s},{d}->{dv}] "
                 f"causal={causal}")
         atol, rtol = BWD_TOL[dtype]
         e_dq = max_err_within(dq, want_dq, atol, what + " dq", rtol)
@@ -962,7 +960,7 @@ def training_phases(dev, smi: str) -> list[dict]:
         if not all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv_))):
             raise AssertionError(f"{what}: flash_bwd differs from its two "
                                  f"kernels' own launches")
-        for key, e in ((("flash_bwd_dq", dq_variant), e_dq),
+        for key, e in ((("flash_bwd_dq", variant), e_dq),
                        (("flash_bwd_dkv", variant), e_dkv)):
             err[key] = max(err[key], e)
         share_dkv = max(gate_share(dk, want_dk, atol, rtol),
@@ -2575,8 +2573,8 @@ def moe_mla_phase(dev, smi: str, keep) -> dict:
                               "S=2048, bf16)", lambda: step(params, batch),
                               top=10)
     log_flash_share("deepseek-v2 layer prefill (B=1, S=2048, bf16)", prof,
-                    out["deepseek_prefill_ms"], "25.93 ms, the forward "
-                    "58.3% of busy")
+                    out["deepseek_prefill_ms"], "25.93 ms on the "
+                    "CUDA-core forward, the forward 58.3% of busy")
     del params, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2845,8 +2843,8 @@ def families_phase(dev, smi: str, keep) -> dict:
         if full.family == "vlm":
             log_flash_share(f"{name} prefill (B=1, {full.num_patches} "
                             f"patches + {s}, bf16)", prof,
-                            res["prefill_ms"], "140.80 ms, the forward 61% "
-                            "of busy")
+                            res["prefill_ms"], "140.80 ms on the "
+                            "CUDA-core forward, the forward 61% of busy")
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2885,18 +2883,14 @@ PHI3V_BWD = (32, 576 + 2048, 96, 96)   # [B*H, P + S, d, dv] of phi-3-vision's
 #                                        train step at B = 1
 CARD_BYTES = 80e9                      # the H100's 80 GB
 SPARE_BYTES = 15e9                     # kept free of the memory reckoning
-# bf16 at (96, 96) and (192, 128): the kernel each flash entry of a train
-# step takes (the forwards and dk/dv on the tensor cores, dq on the CUDA
-# cores), written out here rather than read from the dispatch rule
-WIDE_BF16 = {"flash_fwd_lse": "sm90", "flash_bwd_dq": "simt",
-             "flash_bwd_dkv": "sm90"}
 # (arch, depth unit, bf16 train step (B, S), the flash kernels its
-# attention must take: tensor-core at olmoe's d = 128, WIDE_BF16 at
-# phi-3-vision's d = 96, none for the rest); the depth is cut, in whole
+# attention must take, written out here rather than read from the dispatch
+# rule: tensor-core at olmoe's d = 128 and phi-3-vision's d = 96, none for
+# the rest); the depth is cut, in whole
 # units (zamba2's groups of 6 Mamba2 layers), only as far as
 # train_reckoning says the card forces
 TRAIN_FAMILIES = (("olmoe_1b_7b", 1, (4, 2048), "sm90"),
-                  ("phi3_vision_4_2b", 1, (1, 2048), WIDE_BF16),
+                  ("phi3_vision_4_2b", 1, (1, 2048), "sm90"),
                   ("zamba2_2_7b", 6, (1, 512), None),
                   ("xlstm_125m", 1, (4, 256), None),
                   ("whisper_base", 1, (4, 448), None))
@@ -2987,9 +2981,9 @@ def parking(depths: dict) -> tuple:
 def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
     """The bf16 backward kernels at [bh, s, d -> dv] (one batch row of bh
     heads) against their plain versions at BWD_TOL, each gate share
-    printed: dk/dv through the kernel the dispatch rule picks and, where
-    that is the tensor-core one, the CUDA-core kernel forced at the same
-    inputs; dq through the rule's kernel.  Their times, the plain
+    printed: dq and dk/dv through the kernel the dispatch rule picks and,
+    where that is the tensor-core one, the CUDA-core kernel forced at the
+    same inputs.  Their times, the plain
     versions', the backward of F.scaled_dot_product_attention
     (``autograd.grad`` of a saved forward on [1, bh, s, d]; None where it
     refuses the shape) and the bounds.  "err" and "ms" are keyed by
@@ -3010,7 +3004,7 @@ def hold_and_time_bwd(rng, dev, bh, s, d, dv, smi) -> dict:
     for entry in BWD_ENTRIES:
         rule = flash.kernel_variant(entry, torch.bfloat16, d, dv)
         keys += [(entry, rule)] + ([(entry, "simt")] if rule == "sm90"
-                                   and entry == "flash_bwd_dkv" else [])
+                                   else [])
     atol, rtol = BWD_TOL["bfloat16"]
     width = f"{d}->{dv}" if d != dv else f"{d}"
     err, shares = {}, {}
@@ -3210,21 +3204,17 @@ def train_batches(cfg, b: int, s: int, n: int, dev) -> list:
     return out
 
 
-def step_launches(variant, layers: int) -> dict:
+def step_launches(variant: str | None, layers: int) -> dict:
     """The flash launches of one train step with remat through
-    ``variant``'s kernels -- one variant for every entry, or a dict of
-    one per entry (``WIDE_BF16``): per layer two forwards (forward and
+    ``variant``'s kernels: per layer two forwards (forward and
     recompute), one dq and one dk/dv; none where ``variant`` is None.
-    The caller names the variants, so a head width the dispatch rule
+    The caller names the variant, so a head width the dispatch rule
     misroutes fails the launch gate."""
     if variant is None:
         return {}
-    per = (variant if isinstance(variant, dict)
-           else dict.fromkeys(("flash_fwd_lse", "flash_bwd_dq",
-                               "flash_bwd_dkv"), variant))
-    return {f"flash_fwd_lse/{per['flash_fwd_lse']}": 2 * layers,
-            f"flash_bwd_dq/{per['flash_bwd_dq']}": layers,
-            f"flash_bwd_dkv/{per['flash_bwd_dkv']}": layers}
+    return {f"flash_fwd_lse/{variant}": 2 * layers,
+            f"flash_bwd_dq/{variant}": layers,
+            f"flash_bwd_dkv/{variant}": layers}
 
 
 def grad_compress_card_vs_cpu(cfg, params, batch, dev) -> None:
@@ -3330,8 +3320,9 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
                               lambda: step(params, opt_state, batch), top=8)
     if cfg.family == "vlm":
         log_flash_share(f"{cfg.name} train step (depth {cfg.num_layers}, "
-                        f"B={b}, S={s}, bf16)", prof, med, "672.28 ms, the "
-                        "forward 14.8%, dk/dv 14.3% and dq 11.4% of busy")
+                        f"B={b}, S={s}, bf16)", prof, med, "518.56 ms with "
+                        "dq on the CUDA cores, the flash kernels 18.7% and "
+                        "dq 15.6% of busy")
     return {"launches": dict(total), "step_ms": med, "peak_gib": peak / 2**30,
             "tokens_per_s": tokens / med * 1e3, "losses": losses}
 
@@ -3340,7 +3331,8 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     """Phase 19 on the bf16 weights phases 17-18 ``parked`` (cut to
     ``train_depths``' ``depths``); returns the flash launches of each
     train path, the bf16 backward kernels' checks and times at
-    phi-3-vision's and MLA's shapes, and each family's step figures."""
+    phi-3-vision's, MLA's and olmoe's shapes, and each family's step
+    figures."""
     import gc
     import tempfile
 
@@ -3362,7 +3354,9 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
 
     # -- the bf16 backward kernels at the train paths' head widths
     out["bwd"] = {"phi3v": hold_and_time_bwd(rng, dev, *PHI3V_BWD, smi),
-                  "mla": hold_and_time_bwd(rng, dev, *MLA_SHAPE, smi)}
+                  "mla": hold_and_time_bwd(rng, dev, *MLA_SHAPE, smi),
+                  "olmoe": hold_and_time_bwd(rng, dev, *OLMOE_SHAPE,
+                                             OLMOE_SHAPE[2], smi)}
     gc.collect()
     torch.cuda.empty_cache()
     lap("the backward kernels held and timed")
@@ -3436,7 +3430,7 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     wall = (time.perf_counter() - t0) * 1e3
     counts = flash_variant_counts(flash)
     peak = torch.cuda.max_memory_allocated()
-    want = step_launches(WIDE_BF16, DEEPSEEK_LAYERS)  # (192, 128)
+    want = step_launches("sm90", DEEPSEEK_LAYERS)  # (192, 128)
     if counts != want:
         raise AssertionError(f"deepseek-v2 bf16 loss + grads: launches "
                              f"{counts}, expected {want}")
@@ -3456,8 +3450,8 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
                               "S=2048, bf16)", lambda: loss_and_grads(
                                   cfg, params, batch, dev), top=8)
     log_flash_share("deepseek-v2 layer loss + grads (B=1, S=2048, bf16; the "
-                    "first call's wall)", prof, wall, "the flash kernels "
-                    "56.9% of busy")
+                    "first call's wall)", prof, wall, "122.63 ms with dq "
+                    "on the CUDA cores, dq 25.7% of busy")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3701,9 +3695,9 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                     row["launches"] = sum(mine.values())
         row["also_timed"].pop(row["timed_at"], None)
     # the backward kernels: phase 19's bf16 train paths give the launches;
-    # each kernel this run timed at phi-3-vision's and MLA's shapes takes
-    # its times at phi-3-vision's (MLA's and the smollm training shape's
-    # under "also_timed")
+    # each kernel this run timed at phi-3-vision's, MLA's and olmoe's
+    # shapes takes its times at phi-3-vision's (the others' and the smollm
+    # training shape's under "also_timed")
     for row in flash_rows:
         if not row["name"].startswith("flash_bwd"):
             continue
@@ -3720,7 +3714,7 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                 bf16 += n if "bf16" in what else 0
         if bf16:
             row["launches"] = bf16
-        for key in ("mla", "phi3v"):
+        for key in ("olmoe", "mla", "phi3v"):
             held = trained["bwd"][key]
             if (entry, variant) not in held["ms"]:
                 continue

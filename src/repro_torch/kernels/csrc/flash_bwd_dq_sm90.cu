@@ -1,5 +1,5 @@
 // Flash-attention dQ backward on Hopper's tensor cores (sm_90a): bf16,
-// D = DV in {64, 128}.
+// head widths (D, DV) in {(64, 64), (128, 128), (96, 96), (192, 128)}.
 //
 // With the forward's logsumexp L and delta[i] = dO[i] . O[i] (computed by
 // the caller), P is recomputed tile by tile and never stored:
@@ -8,10 +8,11 @@
 //   dS[i, j] = P[i, j] * (dO[i] . V[j] - delta[i]) * scale
 //   dQ[i]    = sum_j dS[i, j] K[j]
 //
-// over keys j <= i (causal) or all keys; Q, K, V, dO are [BH, S, D] bf16,
-// L and delta [BH, S] float32; dQ is written in bf16.  Every other dtype
-// and head width takes flash_bwd.cu's dQ kernel; the wrapper
-// (kernels/flash.py:kernel_variant) chooses by dtype and shape alone.
+// over keys j <= i (causal) or all keys; Q, K are [BH, S, D] and V, dO
+// [BH, S, DV] bf16, L and delta [BH, S] float32; dQ [BH, S, D] is written
+// in bf16.  Every other dtype and head width takes flash_bwd.cu's dQ
+// kernel; the wrapper (kernels/flash.py:kernel_variant) chooses by dtype
+// and shape alone.
 //
 // Replaces the Pallas TPU kernel of the JAX package, as flash_bwd.cu's dQ
 // kernel does:
@@ -22,11 +23,15 @@
 // query rows and key columns are masked, and P and dS of a query row past
 // S are 0 by select, whatever its L or delta would read.
 //
-// What bounds it on this card.  At the training path's shape (smollm-135m,
-// [36, 2048, 64] bf16 per layer, causal: 7.553e7 (query, key) pairs) the
-// function is three products a pair (Q K^T, dO V^T, dS K: 384 FLOP),
-// 2.90e10 FLOP, 29.33 us at the 989 TFLOP/s bf16 tensor-core peak,
-// against ~48 MB (~14 us at 3.35 TB/s): bound by operations.
+// What bounds it on this card.  Three products a (query, key) pair (Q K^T
+// over D, dO V^T over DV, dS K over the keys into D columns: 2 (2 D + DV)
+// FLOP), at 989 TFLOP/s bf16 against Q, K, V, dO, L, delta and dQ moved
+// once at 3.35 TB/s; every path shape is bound by operations:
+//   smollm-135m [36, 2048, 64]:            2.90e10 FLOP, 29.33 us (~48 MB, 14)
+//   olmoe-1b-7b [64, 2048, 128]:           1.03e11 FLOP, 104.3 us (~169 MB, 50)
+//   phi-3-vision [32, 2624, 96]:           6.35e10 FLOP, 64.19 us (~81 MB, 24)
+//   deepseek-v2 MLA [128, 2048, 192->128]: 2.75e11 FLOP, 278.07 us (~438 MB,
+//                                          131)
 //
 // What the design does about it.  Every product runs on the tensor cores
 // with wgmma, fed by TMA (sm90.cuh); it is the forward's loop
@@ -39,25 +44,36 @@
 //   * the producer loads the block's Q and dO tiles once, then streams
 //     64-key tiles of K and V into a three-stage ring guarded by full /
 //     empty mbarriers, up to the causal limit; the 3-D tensor maps
-//     (D, S, BH) zero-fill rows past S.  Each consumer thread reads the L
-//     and delta of its own two rows once, with plain loads.
-//   * S = Q K^T and dP = dO V^T are SS wgmmas (all four operands K-major)
-//     into float32 registers; P = exp2(S scale log2(e) - L log2(e)) and
-//     dS = P (dP - delta) scale on the registers.
-//   * dQ += dS K is an RS wgmma: the accumulator of dS is the A operand in
-//     registers, and K is read MN-major (B's transpose bit) from the same
-//     shared tile that Q K^T read K-major.
+//     (width, S, BH) zero-fill rows past S.  Each tile is col_blocks(width)
+//     64-column blocks of 128-byte rows: a 96-wide tile is two blocks whose
+//     columns 96-127 TMA fills with zeros (the mbarrier counts the whole
+//     boxes), a 192-wide one three.  Shared memory: 81 KB at (64, 64), 161
+//     KB at (128, 128), 161 KB at (96, 96) (Q, dO 32 KB each; stages of
+//     K 16 + V 16 KB), 201 KB at (192, 128) (Q 48, dO 32; K 24 + V 16).
+//     Each consumer thread reads the L and delta of its own two rows once,
+//     with plain loads.
+//   * S = Q K^T (D / 16 k-steps) and dP = dO V^T (DV / 16) are SS wgmmas
+//     (all four operands K-major) into float32 registers; P = exp2(S
+//     scale log2(e) - L log2(e)) and dS = P (dP - delta) scale on the
+//     registers.
+//   * dQ += dS K is an RS wgmma of N = D (64, 96, 128 or 192): the
+//     accumulator of dS is the A operand in registers, and K is read
+//     MN-major (B's transpose bit; 64-column blocks one K tile apart) from
+//     the same shared tile that Q K^T read K-major.  The epilogue writes
+//     the accumulator's D columns, none of the zero padding.
 //   * Split register operand.  Rounding dS to bf16 once puts dQ at 2.62x
-//     (d = 64) and 1.88x (d = 128) of the bf16 gate (atol 1e-3 + rtol
-//     8e-3 |want|, held by chip_smoke.py and tests/test_torch_cuda.py);
-//     split into hi = bf16(x) and lo = bf16(x - hi), both products into
-//     the same float32 accumulator, it lands at 0.54x and 0.68x
+//     (64), 1.88x (128), 3.05x (96, 96) and 1.90x (192, 128) of the bf16
+//     gate (atol 1e-3 + rtol 8e-3 |want|, held by chip_smoke.py and
+//     tests/test_torch_cuda.py); split into hi = bf16(x) and lo = bf16(x -
+//     hi), both products into the same float32 accumulator, it lands at
+//     0.54x, 0.68x, 0.76x and 0.56x
 //     (tests/test_torch_flash.py:split_operand_gate_ratios, [4, 2048, d]
 //     on the CPU).  The split costs four products a tile instead of three
 //     and buys the gate.
-//   * 64-key tiles keep the S, dP and dQ accumulators and the split dS
-//     fragments of a thread (at most 32 + 32 + 64 + 32 registers at
-//     d = 128) within the consumers' 232 registers, without spills.
+//   * 64-key tiles at every width: a thread holds dQ (D / 2 floats: 32,
+//     48, 64, 96), S and dP (32 + 32) and the split dS (32), at most ~160
+//     live values at (192, 128), within the consumers' 232 registers
+//     without spills.
 // Not done here: overlap of one tile's exp with the next tile's products,
 // a persistent grid, delta computed in the kernel, and GQA without the
 // materialised K/V repeat.
@@ -87,17 +103,21 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared bytes: Q [kBQ, D], dO [kBQ, D], then kStages x (K [kBK, D],
-// V [kBK, D]), each in 64-column blocks of 128-byte rows.
-template <int D>
+// Shared bytes: Q [kBQ, D], dO [kBQ, DV], then kStages x (K [kBK, D],
+// V [kBK, DV]), each in 64-column blocks of 128-byte rows (whole blocks:
+// TMA writes, and the mbarrier counts, a 96-wide tile's zero half too).
+template <int D, int DV>
 struct Layout {
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKBytes = kBK * D * 2;
-  static constexpr int kStageBytes = 2 * kKBytes;
-  static constexpr int kBytes = 2 * kQBytes + kStages * kStageBytes + 1024;
+  static constexpr int kQBytes = kBQ * 128 * sm90::col_blocks(D);
+  static constexpr int kDOBytes = kBQ * 128 * sm90::col_blocks(DV);
+  static constexpr int kKBytes = kBK * 128 * sm90::col_blocks(D);
+  static constexpr int kVBytes = kBK * 128 * sm90::col_blocks(DV);
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kBytes =
+      kQBytes + kDOBytes + kStages * kStageBytes + 1024;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -107,12 +127,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ Delta,
                          __nv_bfloat16* __restrict__ dQ, int S, float scale,
                          int causal) {
-  using L = Layout<D>;
+  using L = Layout<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q, bar_full[kStages], bar_empty[kStages];
   uint8_t* q_s = sm90::align_1024(smem_raw);
   uint8_t* do_s = q_s + L::kQBytes;
-  uint8_t* kv_s = do_s + L::kQBytes;
+  uint8_t* kv_s = do_s + L::kDOBytes;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
@@ -133,24 +153,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one lane issues TMA
     sm90::setmaxnreg_dec<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
-      sm90::mbar_expect_tx(&bar_q, 2 * L::kQBytes);
-      for (int c = 0; c < D / 64; ++c) {
+      sm90::mbar_expect_tx(&bar_q, L::kQBytes + L::kDOBytes);
+      for (int c = 0; c < sm90::col_blocks(D); ++c)
         sm90::tma_load_3d(q_s + c * kBQ * 128, &tm_q, &bar_q, 64 * c, q0, bh);
+      for (int c = 0; c < sm90::col_blocks(DV); ++c)
         sm90::tma_load_3d(do_s + c * kBQ * 128, &tm_do, &bar_q, 64 * c, q0,
                           bh);
-      }
       for (int j = 0; j < nk; ++j) {
         const int s = j % kStages;
         sm90::mbar_wait(&bar_empty[s], ((j / kStages) & 1) ^ 1);
         sm90::mbar_expect_tx(&bar_full[s], L::kStageBytes);
         uint8_t* k_s = kv_s + s * L::kStageBytes;
         uint8_t* v_s = k_s + L::kKBytes;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < sm90::col_blocks(D); ++c)
           sm90::tma_load_3d(k_s + c * kBK * 128, &tm_k, &bar_full[s], 64 * c,
                             j * kBK, bh);
+        for (int c = 0; c < sm90::col_blocks(DV); ++c)
           sm90::tma_load_3d(v_s + c * kBK * 128, &tm_v, &bar_full[s], 64 * c,
                             j * kBK, bh);
-        }
       }
     }
   } else {
@@ -189,21 +209,29 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint8_t* k_s = kv_s + s * L::kStageBytes;
       const uint8_t* v_s = k_s + L::kKBytes;
       if (j < nk_wg) {
-        // S = Q K^T and dP = dO V^T: [64 rows, kBK keys]
+        // S = Q K^T (depth D) and dP = dO V^T (depth DV): [64 rows, kBK
+        // keys]
         float sc[kBK / 2], dp[kBK / 2];
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int blk = kk / 4, off = (kk % 4) * 32;
-          const int a_off = blk * kBQ * 128 + wg * 64 * 128 + off;
-          const int b_off = blk * kBK * 128 + off;
-          sm90::wgmma_ss<kBK, 0>(sc, sm90::desc_sw128(q_s + a_off, 16, 1024),
-                                 sm90::desc_sw128(k_s + b_off, 16, 1024),
-                                 kk > 0);
-          sm90::wgmma_ss<kBK, 0>(dp,
-                                 sm90::desc_sw128(do_s + a_off, 16, 1024),
-                                 sm90::desc_sw128(v_s + b_off, 16, 1024),
-                                 kk > 0);
+          sm90::wgmma_ss<kBK, 0>(
+              sc,
+              sm90::desc_sw128(q_s + blk * kBQ * 128 + wg * 64 * 128 + off,
+                               16, 1024),
+              sm90::desc_sw128(k_s + blk * kBK * 128 + off, 16, 1024),
+              kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          const int blk = kk / 4, off = (kk % 4) * 32;
+          sm90::wgmma_ss<kBK, 0>(
+              dp,
+              sm90::desc_sw128(do_s + blk * kBQ * 128 + wg * 64 * 128 + off,
+                               16, 1024),
+              sm90::desc_sw128(v_s + blk * kBK * 128 + off, 16, 1024),
+              kk > 0);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -230,6 +258,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
 
         // dQ += dS K, dS split into hi + lo, K [kBK keys, D] read MN-major
+        // (N = D; its 64-column blocks one K tile, kBK * 128 bytes, apart)
         uint32_t ds_hi[kBK / 16][4], ds_lo[kBK / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
@@ -269,23 +298,23 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, int bh, int s,
            float scale, int causal, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int err = sm90::encode_bf16_3d(&tm_q, q, bh, s, D, kBQ);
   if (!err) err = sm90::encode_bf16_3d(&tm_k, k, bh, s, D, kBK);
-  if (!err) err = sm90::encode_bf16_3d(&tm_v, v, bh, s, D, kBK);
-  if (!err) err = sm90::encode_bf16_3d(&tm_do, dout, bh, s, D, kBQ);
+  if (!err) err = sm90::encode_bf16_3d(&tm_v, v, bh, s, DV, kBK);
+  if (!err) err = sm90::encode_bf16_3d(&tm_do, dout, bh, s, DV, kBQ);
   if (err) return err;
-  const int bytes = Layout<D>::kBytes;
+  const int bytes = Layout<D, DV>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_sm90_kernel<D>,
+      flash_bwd_dq_sm90_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(bh, (s + kBQ - 1) / kBQ);
-  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dq_sm90_kernel<D, DV><<<grid, kThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dq),
       s, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -295,21 +324,30 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// q, k, v, dout, dq: [bh, s, d] bf16, contiguous, 16-byte aligned; d is 64
-// or 128; lse, delta: [bh, s] float32; bh * s < 2^31 (TMA coordinates are
-// 32-bit).
+// q, k, dq: [bh, s, d] and v, dout: [bh, s, dv] bf16, contiguous, 16-byte
+// aligned; (d, dv) is (64, 64), (128, 128), (96, 96) or (192, 128); lse,
+// delta: [bh, s] float32; bh * s < 2^31 (TMA coordinates are 32-bit).
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int bh, int s, int d, float scale, int causal,
-                      void* stream) {
+                      void* dq, int bh, int s, int d, int d_v, float scale,
+                      int causal, void* stream) {
   if (bh < 1 || s < 1 || (s + kBQ - 1) / kBQ > 65535 ||
-      static_cast<long long>(bh) * s > 2147483647LL || (d != 64 && d != 128))
+      static_cast<long long>(bh) * s > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(q, k, v, dout, lse, delta, dq, bh, s, scale,
-                              causal, st)
-                 : launch<128>(q, k, v, dout, lse, delta, dq, bh, s, scale,
-                               causal, st);
+  if (d == 64 && d_v == 64)
+    return launch<64, 64>(q, k, v, dout, lse, delta, dq, bh, s, scale,
+                          causal, st);
+  if (d == 128 && d_v == 128)
+    return launch<128, 128>(q, k, v, dout, lse, delta, dq, bh, s, scale,
+                            causal, st);
+  if (d == 96 && d_v == 96)
+    return launch<96, 96>(q, k, v, dout, lse, delta, dq, bh, s, scale,
+                          causal, st);
+  if (d == 192 && d_v == 128)
+    return launch<192, 128>(q, k, v, dout, lse, delta, dq, bh, s, scale,
+                            causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* flash_bwd_dq_sm90_error_string(int code) {

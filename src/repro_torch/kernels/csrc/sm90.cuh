@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu), written from the PTX ISA:
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu),
+// written from the PTX ISA:
 //
 //   * TMA: a 3-D tensor map of a bf16 [outer, rows, cols] tensor, encoded on
 //     the host through the driver's cuTensorMapEncodeTiled (reached with

@@ -15,11 +15,10 @@ Pallas kernels:
   :func:`flash_bwd` runs dq, then dk/dv.
 
 Which kernel a call takes is :func:`kernel_variant`'s rule on dtype and
-shape alone, per entry (:data:`SM90_PAIRS`): ``"sm90"`` (the tensor-core
-kernel) for bfloat16 with (d, dv) in {(64, 64), (128, 128)} at every entry,
-and at (96, 96) (phi-3-vision) and (192, 128) (DeepSeek-V2's MLA) for the
-forward entries and dk/dv, whose dq stays on the CUDA cores; ``"simt"``
-(the CUDA-core kernel) for everything else, float32 included.  A build or
+shape alone (:data:`SM90_PAIRS`): ``"sm90"`` (the tensor-core kernel) for
+bfloat16 with (d, dv) in {(64, 64), (128, 128), (96, 96) (phi-3-vision),
+(192, 128) (DeepSeek-V2's MLA)} at every entry; ``"simt"`` (the CUDA-core
+kernel) for everything else, float32 included.  A build or
 launch failure raises; nothing falls back.  Each source's header
 says what bounds it on the card and what its design does about that.
 
@@ -56,12 +55,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_HEAD_DIM = 256
 ENTRIES = ("flash_fwd_lse", "flash_attention_bhsd", "flash_bwd_dq",
            "flash_bwd_dkv")
-# bf16 (d, dv) -> the entries whose tensor-core kernel takes that pair
-SM90_PAIRS = {(64, 64): ENTRIES, (128, 128): ENTRIES,
-              (96, 96): ("flash_fwd_lse", "flash_attention_bhsd",
-                         "flash_bwd_dkv"),
-              (192, 128): ("flash_fwd_lse", "flash_attention_bhsd",
-                           "flash_bwd_dkv")}
+# bf16 (d, dv) pairs whose tensor-core kernels every entry takes
+SM90_PAIRS = ((64, 64), (128, 128), (96, 96), (192, 128))
 VARIANTS = ("sm90", "simt")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,14 +69,13 @@ def kernel_variant(entry: str, dtype: torch.dtype, d: int, dv: int) -> str:
     """The kernel ``entry`` launches for a CUDA call: ``"sm90"`` (the
     tensor-core kernel, ``csrc/flash_fwd_sm90.cu``,
     ``csrc/flash_bwd_dq_sm90.cu`` or ``csrc/flash_bwd_dkv_sm90.cu``) at
-    bfloat16 where :data:`SM90_PAIRS` lists (d, dv) for ``entry``: (64, 64)
-    and (128, 128) for every entry, (96, 96) and (192, 128) for the forward
-    entries and dk/dv but not dq; ``"simt"`` (the float32 CUDA-core kernel
-    of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise.  A rule
-    on entry, dtype and shape only."""
+    bfloat16 where :data:`SM90_PAIRS` lists (d, dv): (64, 64), (128, 128),
+    (96, 96) and (192, 128); ``"simt"`` (the float32 CUDA-core kernel of
+    ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``) otherwise.  A rule on
+    dtype and shape only, the same for every entry."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown flash entry {entry!r}")
-    if dtype == torch.bfloat16 and entry in SM90_PAIRS.get((d, dv), ()):
+    if dtype == torch.bfloat16 and (d, dv) in SM90_PAIRS:
         return "sm90"
     return "simt"
 
@@ -125,7 +119,7 @@ def _load(stem: str) -> ctypes.CDLL:
                 "flash_fwd_sm90": [vp] * 5 + [ci] * 4 + [cf, ci, vp],
                 "flash_sm90_probe": [vp] * 5 + [ci, ci, vp]},
             "flash_bwd_dq_sm90": {
-                "flash_bwd_dq_sm90": [vp] * 7 + [ci] * 3 + [cf, ci, vp]},
+                "flash_bwd_dq_sm90": [vp] * 7 + [ci] * 4 + [cf, ci, vp]},
             "flash_bwd_dkv_sm90": {
                 "flash_bwd_dkv_sm90": [vp] * 8 + [ci] * 4 + [cf, ci, vp]},
         }[stem]
@@ -330,8 +324,7 @@ def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs, scale: float,
             _check_tma(**tma)
             stem = f"{entry}_sm90"
             lib = _load(stem)
-            widths = (d,) if entry == "flash_bwd_dq" else (d, dv)
-            code = getattr(lib, stem)(*ptrs, bh, s, *widths, float(scale),
+            code = getattr(lib, stem)(*ptrs, bh, s, d, dv, float(scale),
                                       int(causal), stream)
         else:
             lib = _load("flash_bwd")

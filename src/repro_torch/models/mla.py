@@ -6,8 +6,8 @@ K/V are up-projections of the latent.  Prefill materializes K/V, in one
 of three forms: the flash kernel (``attn_impl == "flash"`` and S >= 128),
 whose q/k width is qk_nope + qk_rope (192 at full size) against a v width
 of 128 -- in bf16 :func:`repro_torch.kernels.flash.kernel_variant` sends
-(192, 128) to the tensor-core forward and dk/dv kernels and the CUDA-core
-dq, in float32 (and at smoke widths) to the CUDA-core kernels; query chunks
+(192, 128) to the tensor-core kernels (the forward, dq and dk/dv), in
+float32 (and at smoke widths) to the CUDA-core kernels; query chunks
 (``attn_chunk_q``); or the whole score matrix.  Decode uses the *absorbed*
 form: queries are pulled into the latent space (q_eff = q_nope @ W_uk per
 head) so attention runs against the cached latents -- the cache is

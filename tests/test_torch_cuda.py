@@ -10,9 +10,9 @@ against the CPU port, a float32 train step of each non-dense smoke
 config against the CPU port, ``grad_compress`` card == CPU bit for bit, a
 bf16 step under ``remat_policy="dots"`` against "full", and the
 flash-attention kernels (forward, dq, dk/dv, each on the CUDA cores and
-the tensor cores; in bf16 at head widths 96 and 192 -> 128 the
-tensor-core forward and dk/dv and the CUDA-core dq; the tensor-core tile
-products alone) against their plain versions.  Marked ``cuda``; each test skips without a card.
+the tensor cores, in bf16 at head widths 64, 128, 96 and 192 -> 128 on
+the tensor cores; the tensor-core tile products alone) against their
+plain versions.  Marked ``cuda``; each test skips without a card.
 On a GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -332,7 +332,7 @@ BWD_CASES = [(36, 2048, 64, 64, torch.bfloat16, True),
              (1, 1, 16, 16, torch.float32, True),
              (2, 300, 64, 32, torch.float32, False),
              # bf16 at phi-3-vision's 96 and MLA's 192 -> 128 (the
-             # CUDA-core kernels): the train paths' shapes, and ragged
+             # tensor-core kernels): the train paths' shapes, and ragged
              (32, 2624, 96, 96, torch.bfloat16, True),
              (128, 2048, 192, 128, torch.bfloat16, True),
              (4, 1000, 96, 96, torch.bfloat16, True),
@@ -409,9 +409,9 @@ def test_sm90_kernels_match_plain_on_card(cuda, no_tf32, d, causal, s):
 def test_sm90_forward_and_dkv_at_the_new_widths_on_card(cuda, no_tf32, d, dv,
                                                         causal, s):
     """bf16 at phi-3-vision's (96, 96) and MLA's (192, 128): the
-    tensor-core forward (both entries) and dk/dv, and the CUDA-core dq,
-    against their plain versions at the unchanged bf16 gates, with the
-    launches counted per variant."""
+    tensor-core forward (both entries), dq and dk/dv against their plain
+    versions at the unchanged bf16 gates, with the launches counted per
+    variant."""
     from repro_torch.kernels import flash
     bh = 4 if s == 2048 else 3
     g = torch.Generator(device=cuda).manual_seed(s + d + dv + causal)
@@ -440,9 +440,57 @@ def test_sm90_forward_and_dkv_at_the_new_widths_on_card(cuda, no_tf32, d, dv,
     _close(dv_, want_dv, *BWD_TOL[torch.bfloat16])
     _close(dq, want_dq, *BWD_TOL[torch.bfloat16])
     for entry in flash.ENTRIES:
-        want = (0, 1) if entry == "flash_bwd_dq" else (1, 0)
         assert (flash.launch_count(entry, "sm90"),
-                flash.launch_count(entry, "simt")) == want, entry
+                flash.launch_count(entry, "simt")) == (1, 0), entry
+
+
+@pytest.mark.parametrize("d,dv", [(96, 96), (192, 128)])
+def test_sm90_and_simt_dq_at_the_new_widths_on_card(cuda, no_tf32, d, dv):
+    """At [4, 1000, 96] and [4, 1000, 192 -> 128] bf16 causal, the
+    tensor-core dq (the rule's) and the CUDA-core dq forced at the same
+    inputs both hold the unchanged bf16 gate against the plain version,
+    one launch of each variant."""
+    from repro_torch.kernels import flash
+    g = torch.Generator(device=cuda).manual_seed(1000 + d + dv)
+    q, k = (torch.randn(4, 1000, d, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn(4, 1000, dv, device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    kw = dict(scale=d ** -0.5, causal=True)
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(o, do)
+    want = ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    flash.reset_launch_count()
+    got = {"sm90": flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           "simt": torch.empty_like(q)}
+    flash._launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta,
+                      (got["simt"],), kw["scale"], True, "simt")
+    torch.cuda.synchronize()
+    for variant, dq in got.items():
+        assert flash.launch_count("flash_bwd_dq", variant) == 1, variant
+        assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+        _close(dq, want, *BWD_TOL[torch.bfloat16])
+
+
+def test_sm90_dq_is_deterministic_at_192_to_128_on_card(cuda):
+    """One block owns its query rows and nothing is added with atomics:
+    two launches of the tensor-core dq at [8, 1000, 192 -> 128] bf16 give
+    the same bits."""
+    from repro_torch.kernels import flash
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k = (torch.randn(8, 1000, 192, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn(8, 1000, 128, device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    kw = dict(scale=192 ** -0.5, causal=True)
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, **kw)
+    delta = ref.flash_bwd_delta(o, do)
+    flash.reset_launch_count()
+    a = flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    b = flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert flash.launch_count("flash_bwd_dq", "sm90") == 2
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("d,n", [(64, 64), (128, 128), (96, 96),
@@ -468,15 +516,14 @@ def test_sm90_tile_products_match_matmul_on_card(cuda, no_tf32, d, n):
 
 def test_flash_bwd_is_deterministic_on_card(cuda):
     """No atomics: the gradients are the same bits on every run, through
-    the tensor-core dq and dk/dv kernels at bf16, d = 64 and 128, the
-    tensor-core dk/dv and the CUDA-core dq at bf16 (96, 96) and (192, 128),
-    and the CUDA-core ones at float32."""
+    the tensor-core dq and dk/dv kernels at bf16 (64, 64), (128, 128),
+    (96, 96) and (192, 128), and the CUDA-core ones at float32."""
     from repro_torch.kernels import flash
     g = torch.Generator(device=cuda).manual_seed(0)
     for d, dv, dtype, dkv, dq in ((64, 64, torch.bfloat16, "sm90", "sm90"),
                                   (128, 128, torch.bfloat16, "sm90", "sm90"),
-                                  (96, 96, torch.bfloat16, "sm90", "simt"),
-                                  (192, 128, torch.bfloat16, "sm90", "simt"),
+                                  (96, 96, torch.bfloat16, "sm90", "sm90"),
+                                  (192, 128, torch.bfloat16, "sm90", "sm90"),
                                   (64, 64, torch.float32, "simt", "simt")):
         q, k = (torch.randn(4, 512, d, device=cuda, generator=g).to(dtype)
                 for _ in range(2))
