@@ -14,6 +14,10 @@ semantics of the reference's fused solver.  Per priority round:
   4. one backpointer walk, for that job only;
   5. one commit of its load to the queues, which also yields its paths.
 
+Each round is three spans (:mod:`repro_torch.tracing`): ``greedy.closures``
+(1), ``greedy.dp`` (2-4, ending with the host's read of the bound) and
+``greedy.commit`` (5).
+
 The reference pads J and the dedupe counts to powers of two for its jit
 cache; padding is bit-exact and PyTorch runs eagerly, so the port does not
 pad.  :func:`greedy_route_ref` is the host-driven reference loop (every
@@ -33,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import minplus
 from .network import ComputeNetwork
 from .jobs import JobBatch
@@ -72,17 +77,21 @@ def greedy_route(net: ComputeNetwork, batch: JobBatch, *,
     paths: dict[int, list] | None = {} if extract_paths else None
     cur = net
     for p in range(J):
-        cl = SP.build_closures_batch(cur, batch, dplan=dplan)
-        cost, total, bps = routing.route_batch_fwd(cur, batch, closures=cl)
-        j = int(torch.argmin(torch.where(routed, torch.inf, cost)))
-        a = routing.assign_from_backpointers(total[j], bps[j])
-        cur, hops = _commit_job(cur, batch, host, j, a, cl)
+        with tracing.span("greedy.closures"):
+            cl = SP.build_closures_batch(cur, batch, dplan=dplan)
+        with tracing.span("greedy.dp"):
+            cost, total, bps = routing.route_batch_fwd(cur, batch,
+                                                       closures=cl)
+            j = int(torch.argmin(torch.where(routed, torch.inf, cost)))
+            a = routing.assign_from_backpointers(total[j], bps[j])
+            bounds[j] = float(cost[j])
+        with tracing.span("greedy.commit"):
+            cur, hops = _commit_job(cur, batch, host, j, a, cl)
+            if paths is not None:
+                paths[j] = routing.hops_to_paths(hops, host["num_layers"][j])
+            routed[j] = True
         order[p] = j
-        bounds[j] = float(cost[j])
         assign[j] = a
-        if paths is not None:
-            paths[j] = routing.hops_to_paths(hops, host["num_layers"][j])
-        routed[j] = True
     return Plan.from_order(assign, order, bounds, solver="greedy",
                            meta=_meta(J, J * J, launches0), net=cur,
                            paths=paths)

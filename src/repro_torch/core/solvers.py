@@ -12,7 +12,6 @@ solves several queued arrival windows in one call.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Protocol, runtime_checkable
 
 from .network import ComputeNetwork
@@ -20,6 +19,7 @@ from .state import QueueState, Topology
 from .jobs import JobBatch
 from .plan import Plan
 from .shortest_path import closure_build_count
+from .. import tracing
 
 
 @runtime_checkable
@@ -76,13 +76,13 @@ def solve(net: ComputeNetwork | Topology, batch: JobBatch,
         raise ValueError("state= is only meaningful with a Topology first arg")
     fn = get(method)
     n0 = closure_build_count()
-    t0 = time.perf_counter()
-    plan = fn(net, batch, **opts)
+    with tracing.span("solvers.solve", timed=True) as timed:
+        plan = fn(net, batch, **opts)
     if not isinstance(plan, Plan):
         raise TypeError(f"solver {method!r} returned {type(plan).__name__}, "
                         "expected Plan")
     meta = {"method": method, **plan.meta,
-            "solve_s": time.perf_counter() - t0,
+            "solve_s": timed.seconds,
             "closure_builds": closure_build_count() - n0}
     return dataclasses.replace(plan, meta=meta)
 
@@ -113,9 +113,9 @@ def solve_fused(net: ComputeNetwork | Topology, batches: list[JobBatch],
             raise ValueError(f"every window must be padded to pad_to="
                              f"{pad_to}; got layer widths {bad}")
     n0 = closure_build_count()
-    t0 = time.perf_counter()
-    plans = greedy.greedy_route_windows(net, batches, **opts)
-    wall = time.perf_counter() - t0
+    with tracing.span("solvers.solve", timed=True) as timed:
+        plans = greedy.greedy_route_windows(net, batches, **opts)
+    wall = timed.seconds
     builds = closure_build_count() - n0
     return [dataclasses.replace(p, meta={
         "method": "greedy", **p.meta, "solve_s": wall,

@@ -8,8 +8,11 @@ patches and enc_out where the batch has them.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import model as M
@@ -46,22 +49,31 @@ def make_train_step(cfg, opt: AdamW | None = None, *,
     (through the flash backward kernels when ``cfg.attn_impl == "flash"``),
     then one :class:`AdamW` step.  The params and state passed in are left
     as they were; the returned ones are new tensors.  On ``DTensor``
-    params each gradient is first laid out as its param (:func:`_sync`)."""
+    params each gradient is first laid out as its param (:func:`_sync`).
+    A step is the span ``steps.train`` (its request id the step's index
+    among this function's calls) over ``steps.forward``,
+    ``steps.backward`` and the optimizer's ``adamw.apply``."""
     dev = resolve_device(device)
     opt = opt or default_optimizer(cfg)
+    calls = itertools.count()
 
     def train_step(params, opt_state, batch):
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss = M.loss_fn(cfg, unflatten(params, flat), _on(dev, batch))
-        # xLSTM blocks carry leaves that no layer reads (each branch's own
-        # norm); their gradient is 0, as the reference's
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
-        grads = [_sync(g, p) for g, p in zip(grads, flat)]
-        params, opt_state, _ = opt.apply(unflatten(params, flat),
-                                         unflatten(params, list(grads)),
-                                         opt_state)
-        return loss.detach(), params, opt_state
+        with tracing.span("steps.train", next(calls)):
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+            with tracing.span("steps.forward"):
+                loss = M.loss_fn(cfg, unflatten(params, flat),
+                                 _on(dev, batch))
+            with tracing.span("steps.backward"):
+                # xLSTM blocks carry leaves that no layer reads (each
+                # branch's own norm); their gradient is 0, as the
+                # reference's
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+                grads = [_sync(g, p) for g, p in zip(grads, flat)]
+            params, opt_state, _ = opt.apply(unflatten(params, flat),
+                                             unflatten(params, list(grads)),
+                                             opt_state)
+            return loss.detach(), params, opt_state
 
     return train_step
 

@@ -4,8 +4,8 @@ Counterpart of ``repro.optim.adamw``: the same state ``{"m", "v",
 "step"}`` (``m``, ``v`` float32 trees mirroring the params, ``step`` an
 int32 scalar), the same order of operations, and the same leaf order in
 the global norm.  ``apply`` returns new trees and leaves its inputs as
-they were.  ``schedule`` is any step -> lr callable from
-:mod:`repro_torch.optim.schedules`.
+they were, and is the span ``adamw.apply``.  ``schedule`` is any step ->
+lr callable from :mod:`repro_torch.optim.schedules`.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.pytree import leaves, tree_map, unflatten
 
 
@@ -36,6 +37,10 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params: dict, grads: dict, state: dict):
+        with tracing.span("adamw.apply"):
+            return self._apply(params, grads, state)
+
+    def _apply(self, params: dict, grads: dict, state: dict):
         step = state["step"] + 1
         lr = self.schedule(step)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))

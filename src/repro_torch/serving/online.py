@@ -35,6 +35,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import arrivals as A, completions as C, jobs as J, schedule
 from repro_torch.core.state import Topology, backlog_seconds
 from .admission import (AdmissionController, AdmissionPolicy, ReplanMonitor,
@@ -303,7 +304,8 @@ class OnlineScheduler(RoutedScheduler):
         dt = max(t - self.now, 0.0)
         if dt > 0 and self.drain_queues:
             # drains at effective (health-aware) rates, fluid or exact
-            self._drain_state(dt)
+            with tracing.span("online.drain"):
+                self._drain_state(dt)
         self._now = max(self._now, float(t))
         self._stamp_clock()
 
@@ -337,12 +339,21 @@ class OnlineScheduler(RoutedScheduler):
         arrived at ``t`` and this is exactly :meth:`submit_jobs`; names
         within a window must be unique (they key the wait accounting and
         the exact-drain completions).  After either mode ``last_solve_s``
-        holds the window's total solve wall.
+        holds the window's total solve wall.  The whole entry is the span
+        ``online.submit``, whose request id is the first job's name.
         """
+        jobs = list(infer_jobs)
+        with tracing.span("online.submit", jobs[0].name if jobs else None):
+            return self._submit_window(t, jobs, arrivals, pad_to,
+                                       solve_mode, method)
+
+    def _submit_window(self, t: float, jobs: list[J.InferenceJob],
+                       arrivals: Sequence[float] | None, pad_to: int | None,
+                       solve_mode: str, method: str | None
+                       ) -> list[Placement]:
         if solve_mode not in ("batched", "sequential"):
             raise ValueError(f"solve_mode must be 'batched' or "
                              f"'sequential', got {solve_mode!r}")
-        jobs = list(infer_jobs)
         if arrivals is not None and len(arrivals) != len(jobs):
             raise ValueError(
                 f"arrivals ({len(arrivals)}) must align with infer_jobs "
@@ -377,7 +388,6 @@ class OnlineScheduler(RoutedScheduler):
             # Admission shed/deferred the whole window: nothing to commit,
             # the shed records already tell the story.
             self.last_solve_s = assess_s
-            self.total_solve_s += assess_s
             self.check_replan()
             return []
         wait = ({j.name: float(t) - a for j, a in zip(jobs, arrs)}
@@ -389,7 +399,6 @@ class OnlineScheduler(RoutedScheduler):
                                                      method=method))
                 walls += self.last_solve_s
             self.last_solve_s = walls + assess_s
-            self.total_solve_s += assess_s
         elif reuse is not None:
             # Every candidate was admitted: commit the assessment's own
             # solve — admission adds no second dispatch on this path.
@@ -398,7 +407,6 @@ class OnlineScheduler(RoutedScheduler):
             placements = self.schedule_jobs(jobs, pad_to=pad_to,
                                             method=method)
             self.last_solve_s += assess_s
-            self.total_solve_s += assess_s
         after = backlog_seconds(eff, self.state)
         self.trace.arrivals_by_name.update(
             {j.name: a for j, a in zip(jobs, arrs)})

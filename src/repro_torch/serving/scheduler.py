@@ -167,10 +167,9 @@ class RoutedScheduler:
         # Why the most recent replan_last() call did / did not commit:
         # None (never called) | "replanned" | "no_batch" | "no_improvement".
         self.last_replan_reason: str | None = None
-        # Solver wall time, of the last call and summed over all calls; the
-        # streaming pipeline's "measured" latency model reads these.
+        # Solver wall time of the last call; the streaming pipeline's
+        # "measured" latency model reads it.
         self.last_solve_s: float = 0.0
-        self.total_solve_s: float = 0.0
 
     @property
     def net(self) -> N.ComputeNetwork:
@@ -361,10 +360,9 @@ class RoutedScheduler:
             plan = self._ledger_commit(topo, batch, plan, pre_state, names)
         self.last_plan = plan
         # Multi-window plans carry the call's wall in solve_s and their
-        # share in solve_share_s; accumulate the share.
+        # share in solve_share_s; keep the share.
         self.last_solve_s = float(plan.meta.get(
             "solve_share_s", plan.meta.get("solve_s", 0.0)))
-        self.total_solve_s += self.last_solve_s
         return plan
 
     def _ledger_commit(self, topo: Topology, batch: J.JobBatch, plan: Plan,
