@@ -8,7 +8,8 @@ Phases, each of which fails the run by exception:
   1. report the card (name, power limit) and build every kernel from
      ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all
      started together); print ptxas's registers and spills for every
-     kernel instance, failing on a spill in a tensor-core library; count
+     kernel instance, failing on a spill in a tensor-core library or in
+     the fused AdamW; count
      the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
      each tensor-core library, failing if either is 0;
   2. hold the min-plus product kernel bit for bit against its plain
@@ -194,10 +195,17 @@ Phases, each of which fails the run by exception:
      17-18, seed 0), every launch counter set to 0 before each step and
      read after it (per layer two forwards, one dq, one dk/dv:
      tensor-core for olmoe and phi-3-vision, none of a CUDA-core kernel;
-     none for the others),
+     none for the others; each step's AdamW apply through the fused
+     kernel of ``csrc/adamw.cu``, one sumsq and one update launch a
+     non-empty leaf and one finalize, no per-leaf apply),
      finite, timed, peak memory, a profiled step (the recurrent families'
      at S = 64; phi-3-vision's with the flash kernels' share of busy
-     time); ``grad_compress`` over one olmoe layer's bf16 gradients, card
+     time); at olmoe-1b-7b's and whisper-base's trained leaves (the
+     gradients of one more batch) the fused AdamW against
+     ``AdamW._per_leaf``: the norm within 1e-5 and two calls equal bit
+     for bit, the clip scale equal to the per-leaf expression's, p, m
+     and v equal leaf by leaf, bit for bit; a whole fused apply and a
+     whole per-leaf apply timed with their bound; ``grad_compress`` over one olmoe layer's bf16 gradients, card
      == CPU bit for bit; deepseek-v2's one full-width layer's bf16 loss
      and gradients (B=1 S=2048; launches as phi-3-vision's); the six
      smoke ``train()`` runs in float32 card == CPU, whisper-base's killed
@@ -214,7 +222,8 @@ Phases, each of which fails the run by exception:
      record's ``memory.argument_bytes``; the port's lint over the
      shipped tree, 0 violations.
 
-The line before the last is a JSON object listing every ported kernel;
+The line before the last is a JSON object listing every ported kernel
+and the port's own fused AdamW;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or run from a directory without the repository's ``src/``, it exits with a
 nonzero code and prints no result.  It imports nothing of JAX and nothing
@@ -2908,24 +2917,28 @@ GRAD_TOL = (1e-5, 1e-4)
 # length
 TRAIN_PROFILE_S = 64
 GC_TOPK_FRAC = 1e-3          # topk_mask's fraction in the grad_compress check
+# the families at whose trained leaves phase 19 holds the fused AdamW
+# against its per-leaf plain version (the olmoe train cell's; whisper's many
+# small and ragged leaves), the gradients from one more batch of (1, S)
+ADAMW_HELD = {"olmoe_1b_7b": 512, "whisper_base": 448}
+ADAMW_NORM_RTOL = 1e-5       # the fused norm's summation order, nothing else
 
 
 def train_reckoning(cfg, b: int, s: int) -> dict:
     """The device memory a bf16 ``make_train_step`` needs, by count from
     the meta-device param tree: ~22 bytes a parameter (bf16 parameter and
     gradient, float32 m and v, each old and new: ``AdamW.apply`` builds
-    every new tree before the old ones are dropped), ~20 bytes an element
-    of the largest leaf (``apply``'s float32 temporaries of one leaf),
-    and the activations under remat: the float32 logits path (~16 bytes a
-    token and vocab entry) and ~100 bytes a token and channel of the
-    widest projection for the block recomputed in the backward."""
+    every new tree before the old ones are dropped; on the card its fused
+    kernel makes no temporaries beside them), and the activations under
+    remat: the float32 logits path (~16 bytes a token and vocab entry)
+    and ~100 bytes a token and channel of the widest projection for the
+    block recomputed in the backward."""
     from repro_torch.models import model as M
     from repro_torch.pytree import leaves
     sizes = [x.numel() for x in leaves(M.param_shapes(cfg))]
     wide = max(cfg.d_model, cfg.d_ff, cfg.moe_top_k * cfg.moe_d_ff)
     tokens = b * (s + cfg.num_patches + cfg.num_frames)
-    return {"params": sum(sizes), "largest": max(sizes),
-            "state": 22 * sum(sizes) + 20 * max(sizes),
+    return {"params": sum(sizes), "state": 22 * sum(sizes),
             "act": 16 * b * s * cfg.padded_vocab + 100 * tokens * wide}
 
 
@@ -3273,19 +3286,21 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
     make them NaN through the clip); peak memory, the step walls (host
     clock around work ended by synchronize) and a profile of one step."""
     import torch
-    from repro_torch.kernels import flash, minplus
+    from repro_torch.kernels import adamw, flash, minplus
     from repro_torch.launch import steps
     from repro_torch.pytree import leaves
     opt = steps.default_optimizer(cfg)
     opt_state = opt.init(params)
     step = steps.make_train_step(cfg, opt, device=dev)
     batches = train_batches(cfg, b, s, TRAIN_STEPS, dev)
-    total = collections.Counter()
+    n = sum(1 for x in leaves(params) if x.numel())
+    want_adamw = {"sumsq": n, "finalize": 1, "update": n}
+    total, total_adamw = collections.Counter(), collections.Counter()
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for batch in batches:
-        for mod in (flash, minplus):
+        for mod in (flash, minplus, adamw):
             mod.reset_launch_count()
         t0 = time.perf_counter()
         loss, params, opt_state = step(params, opt_state, batch)
@@ -3296,7 +3311,14 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
             raise AssertionError(f"{arch} bf16 train step: flash launches "
                                  f"{counts} (expected {want}), min-plus "
                                  f"{minplus.launch_count()}")
+        got = {e: adamw.launch_count(e) for e in adamw.ENTRIES}
+        applies = {p: adamw.apply_count(p) for p in adamw.PATHS}
+        if got != want_adamw or applies != {"fused": 1, "per_leaf": 0}:
+            raise AssertionError(f"{arch} bf16 train step: AdamW launches "
+                                 f"{got} (expected {want_adamw}), applies "
+                                 f"{applies} (expected one fused)")
         total.update(counts)
+        total_adamw.update(got)
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses) or not all(
@@ -3309,8 +3331,9 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
         f"remat): losses {[round(x, 4) for x in losses]}, finite; flash "
         f"launches a step {want or 0}; step wall median {med:.2f} ms over "
         f"{TRAIN_STEPS} (min {min(walls):.2f}, max {max(walls):.2f}), "
-        f"{tokens / med * 1e3:.0f} tokens/s; peak device memory "
-        f"{peak / 2**30:.2f} GiB on {smi}")
+        f"{tokens / med * 1e3:.0f} tokens/s; AdamW through the fused kernel "
+        f"each step ({n} sumsq + 1 finalize + {n} update launches); peak "
+        f"device memory {peak / 2**30:.2f} GiB on {smi}")
     prof = None
     if profiler_works():
         ps = TRAIN_PROFILE_S if cfg.sub_quadratic else s
@@ -3323,8 +3346,144 @@ def train_family(arch, cfg, params, dev, smi, b, s, want) -> dict:
                         f"B={b}, S={s}, bf16)", prof, med, "518.56 ms with "
                         "dq on the CUDA cores, the flash kernels 18.7% and "
                         "dq 15.6% of busy")
-    return {"launches": dict(total), "step_ms": med, "peak_gib": peak / 2**30,
-            "tokens_per_s": tokens / med * 1e3, "losses": losses}
+    out = {"launches": dict(total), "adamw_launches": dict(total_adamw),
+           "step_ms": med, "peak_gib": peak / 2**30,
+           "tokens_per_s": tokens / med * 1e3, "losses": losses}
+    if arch in ADAMW_HELD:
+        batch = train_batches(cfg, 1, ADAMW_HELD[arch], 1, dev)[0]
+        out["adamw_held"] = hold_and_time_adamw(cfg, params, opt_state,
+                                                batch, dev, smi)
+    return out
+
+
+def adamw_bytes(ps: list) -> int:
+    """The bytes a fused apply moves over the leaves ``ps``: p and g (each
+    in p's dtype) and float32 m and v read once, new p, m and v written
+    once, and g read once more by the norm: 4 x p's element size + 16 B a
+    parameter, 24 B a bf16 one and 32 B a float32 one."""
+    return sum(x.numel() * (4 * x.element_size() + 16) for x in ps)
+
+
+def timed_apply(fn, reps: int) -> float:
+    """Median CUDA-event ms of ``fn`` over ``reps`` after one warm-up, the
+    result dropped and the garbage collected after each call (the trees
+    ``AdamW.apply`` returns hold a reference cycle, and two of them do not
+    fit beside the inputs)."""
+    import gc
+
+    import torch
+    times = []
+    for i in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        del out
+        gc.collect()
+        if i:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def hold_and_time_adamw(cfg, params, opt_state, batch, dev, smi) -> dict:
+    """The fused AdamW's wrappers at a trained model's own leaves and state,
+    on the gradients of ``batch``: the norm of ``global_norm`` within
+    ADAMW_NORM_RTOL of the per-leaf path's and equal bit for bit over two
+    calls, its clip scale equal to ``AdamW._clip_scale`` at that norm; p,
+    m and v of ``update`` equal to ``AdamW._per_leaf``'s at that scale,
+    leaf by leaf, at every element; then a whole fused apply
+    (``AdamW.apply``) and a whole per-leaf apply (the norm and
+    ``_per_leaf``, as the CPU runs it) timed, with the bound of
+    :func:`adamw_bytes` at the peak bandwidth."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import adamw
+    from repro_torch.launch import steps
+    from repro_torch.pytree import leaves, unflatten
+    gc.collect()    # the profiled step's trees
+    torch.cuda.empty_cache()
+    opt = steps.default_optimizer(cfg)
+    _, grads = loss_and_grads(cfg, params, batch, dev)
+    ps, ms, vs = (leaves(x) for x in (params, opt_state["m"],
+                                      opt_state["v"]))
+    gs = list(grads)
+    del grads
+    step = opt_state["step"] + 1
+    lr = opt.schedule(step)
+    t = step.float()
+    bc1, bc2 = 1 - opt.b1 ** t, 1 - opt.b2 ** t
+    gnorm, scale = adamw.global_norm(gs, opt.clip_norm)
+    again = adamw.global_norm(gs, opt.clip_norm)
+    want = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+    rel = abs(float(gnorm) - float(want)) / float(want)
+    if not (torch.equal(again[0], gnorm) and torch.equal(again[1], scale)):
+        raise AssertionError(f"{cfg.name} AdamW norm: two calls differ")
+    if rel > ADAMW_NORM_RTOL or not torch.equal(scale,
+                                                opt._clip_scale(gnorm)):
+        raise AssertionError(f"{cfg.name} AdamW norm {float(gnorm)!r} vs "
+                             f"the per-leaf path's {float(want)!r} (rel "
+                             f"{rel:.2e}); scale {float(scale)!r} vs "
+                             f"{float(opt._clip_scale(gnorm))!r}")
+
+    def scalar(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
+    differ, err = collections.Counter(), 0.0
+    for leaf in zip(ps, gs, ms, vs):
+        one = [[x] for x in leaf]
+        got = adamw.update(*one, scale, scalar(lr), scalar(bc1), scalar(bc2),
+                           **hyper)
+        ref = opt._per_leaf(*one, scale, lr, bc1, bc2)
+        for what, a, b in zip("pmv", got, ref):
+            if a[0].numel():
+                differ[what] += int((a[0] != b[0]).sum())
+                err = max(err, float((a[0].float() - b[0].float()).abs()
+                                     .max()))
+        del got, ref
+    if sum(differ.values()):
+        raise AssertionError(f"{cfg.name} AdamW update: elements that differ "
+                             f"from the per-leaf path's {dict(differ)}")
+    tree_g = unflatten(params, gs)
+
+    def per_leaf():
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+        return opt._per_leaf(ps, gs, ms, vs, opt._clip_scale(norm), lr, bc1,
+                             bc2)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    adamw.reset_launch_count()
+    ms_fused = timed_apply(lambda: opt.apply(params, tree_g, opt_state), 5)
+    if adamw.apply_count("fused") != 6 or adamw.apply_count("per_leaf"):
+        raise AssertionError(f"{cfg.name} AdamW timing: applies "
+                             f"{adamw.apply_count('fused')} fused, "
+                             f"{adamw.apply_count('per_leaf')} per-leaf")
+    ms_plain = timed_apply(per_leaf, 3)
+    n = sum(x.numel() for x in ps)
+    moved = adamw_bytes(ps)
+    bound = moved / PEAK_BYTES_PER_S * 1e3
+    dtypes = collections.Counter(str(x.dtype).removeprefix("torch.")
+                                 for x in ps)
+    shape = (f"{cfg.name} depth {cfg.num_layers}: {len(ps)} leaves, {n:,} "
+             f"params")
+    log(f"{cfg.name} AdamW at its {len(ps)} trained leaves ({dict(dtypes)}; "
+        f"{n:,} params, {moved / 1e9:.2f} GB an apply): the fused norm "
+        f"{float(gnorm):.6f} against the per-leaf path's rel {rel:.2e} "
+        f"(tolerance {ADAMW_NORM_RTOL}), two calls equal bit for bit, the "
+        f"clip scale {float(scale):.6f} equal to the per-leaf expression's; "
+        f"p, m and v == the per-leaf path's at every element; an apply "
+        f"fused {ms_fused:.2f} ms ({moved / ms_fused / 1e9:.2f} TB/s, "
+        f"bound {bound:.2f} ms), per-leaf {ms_plain:.2f} ms on {smi}")
+    del tree_g, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"shape": shape, "gnorm_rel": rel, "err": err, "ms": ms_fused,
+            "plain_ms": ms_plain, "bound": (bound, "bytes")}
 
 
 def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
@@ -3346,7 +3505,7 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(19)
-    out = {"launches": {}, "train": {}}
+    out = {"launches": {}, "train": {}, "adamw": {}, "adamw_held": {}}
     start = time.perf_counter()
 
     def lap(what):
@@ -3392,7 +3551,6 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
         why = (f"the whole model; its reckoning {need:.1f} GB" if over is None
                else f"{depth} of {full.num_layers} layers (in units of "
                f"{unit}): {fits['params'] / 1e9:.3f} B params x 22 B + "
-               f"largest leaf {fits['largest'] / 1e9:.3f} B x 20 B + "
                f"activations ~{fits['act'] / 1e9:.1f} GB = {need:.1f} GB; "
                f"{depth + unit} layers would need "
                f"{(over['state'] + over['act']) / 1e9:.1f} GB")
@@ -3410,6 +3568,10 @@ def train_families_phase(dev, smi: str, parked: dict, depths: dict) -> dict:
         res.update(depth=depth, reckoning_gb=need)
         out["train"][full.name] = res
         out["launches"][f"{full.name} bf16 train steps"] = res["launches"]
+        out["adamw"][f"{full.name} bf16 train steps"] = \
+            res["adamw_launches"]
+        if "adamw_held" in res:
+            out["adamw_held"][full.name] = res["adamw_held"]
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3729,7 +3891,40 @@ def merge_rows(minplus_rows: list[dict], flash_rows: list[dict],
                        library_ms=held["sdpa_ms"], timed_at=held["shape"])
         if "also_timed" in row:
             row["also_timed"].pop(row["timed_at"], None)
-    return minplus_rows + flash_rows
+    return minplus_rows + flash_rows + [adamw_row(trained)]
+
+
+def adamw_row(trained: dict) -> dict:
+    """The kernels line's row of the fused AdamW (its three entries as one
+    apply): the launches of phase 19's bf16 train steps, all three entries
+    together, by path and by entry; the times and the bound at the olmoe
+    train cell's leaves (the other held family's under "also_timed"); the
+    largest difference from the per-leaf path's p, m and v (0 when equal)
+    and the norm's relative difference."""
+    held = trained["adamw_held"]
+    first, *rest = held.values()
+    by_entry = collections.Counter()
+    for counts in trained["adamw"].values():
+        by_entry.update(counts)
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": "none: port-only (src/repro/optim/adamw.py runs plain "
+                        "jnp ops); on the card it replaces AdamW._per_leaf "
+                        "(src/repro_torch/optim/adamw.py)",
+            "launches": sum(by_entry.values()),
+            "launches_by_entry": dict(by_entry),
+            "launches_by_path": {f"{what} (phase 19)": sum(counts.values())
+                                 for what, counts in
+                                 trained["adamw"].items()},
+            "max_abs_err": max(h["err"] for h in held.values()),
+            "norm_rel_err": max(h["gnorm_rel"] for h in held.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            "library_ms": None, "timed_at": first["shape"],
+            "also_timed": {h["shape"]: {"ms": h["ms"],
+                                        "plain_ms": h["plain_ms"],
+                                        "bound_ms": h["bound"][0],
+                                        "library_ms": None} for h in rest}}
 
 
 def main() -> int:
@@ -3739,7 +3934,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import flash, minplus
+    from repro_torch.kernels import adamw, flash, minplus
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -3754,13 +3949,14 @@ def main() -> int:
     log(smi)
     t0 = time.perf_counter()
     builds = [minplus.build] + [functools.partial(flash.build, stem)
-                                for stem in flash.STEMS]
+                                for stem in flash.STEMS] + [adamw.build]
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = [pool.submit(b) for b in builds]         # one nvcc each
         lib_paths = [f.result() for f in libs]
     log(f"built {', '.join(p.name for p in lib_paths)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for build_log in (minplus.build_log, *flash.build_log.values()):
+    for build_log in (minplus.build_log, *flash.build_log.values(),
+                      adamw.build_log):
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -3770,6 +3966,7 @@ def main() -> int:
     for stem in flash.STEMS:
         if stem.endswith("_sm90"):
             assert_no_spills(stem, flash.build_log)
+    assert_no_spills("adamw", {"adamw": adamw.build_log})
 
     log(f"phase 1 took {time.perf_counter() - t_start:.1f} s")
     t = time.perf_counter()

@@ -8,7 +8,8 @@ the CPU port, the xLSTM, Zamba2, Whisper and phi-3-vision smoke models
 (prefill, decode with states, engine tokens, whisper's served plan)
 against the CPU port, a float32 train step of each non-dense smoke
 config against the CPU port, ``grad_compress`` card == CPU bit for bit, a
-bf16 step under ``remat_policy="dots"`` against "full", and the
+bf16 step under ``remat_policy="dots"`` against "full", the fused AdamW
+kernel against the optimizer's per-leaf PyTorch path, and the
 flash-attention kernels (forward, dq, dk/dv, each on the CUDA cores and
 the tensor cores, in bf16 at head widths 64, 128, 96 and 192 -> 128 on
 the tensor cores; the tensor-core tile products alone) against their
@@ -957,3 +958,220 @@ def test_remat_policy_dots_on_card(cuda):
     n = cfg.num_layers
     assert res["dots"][1][("flash_fwd_lse", "sm90")] == 2 * n
     assert res["dots"][1][("flash_bwd_dq", "sm90")] == n
+
+
+# -- the fused AdamW (kernels/adamw.py) against its per-leaf plain version ---
+
+ADAMW_SIZES = (1, 7, 2049, 1_000_003)
+
+
+def _adamw_tree(device, dtype, sizes=ADAMW_SIZES, seed=0):
+    """params, grads and an AdamW state of one leaf a size: params ~N(0, 1),
+    grads ~N(0, 1e-4) (a norm of ~10 over the four sizes), m ~N(0, 1e-6),
+    v the square of one more such draw."""
+    rng = np.random.default_rng(seed)
+
+    def draw(scale):
+        return {f"l{i}": torch.from_numpy(
+                    (rng.standard_normal(n) * scale).astype(np.float32)
+                ).to(device) for i, n in enumerate(sizes)}
+
+    params = {k: x.to(dtype) for k, x in draw(1.0).items()}
+    grads = {k: x.to(dtype) for k, x in draw(1e-2).items()}
+    state = {"m": draw(1e-3), "v": {k: x.square() for k, x in
+                                    draw(1e-3).items()},
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return params, grads, state
+
+
+def _adamw_reference(opt, params, grads, state, gnorm):
+    """The per-leaf path's new (ps, ms, vs) at the clip scale of ``gnorm``."""
+    from repro_torch.pytree import leaves
+    step = state["step"] + 1
+    t = step.float()
+    return opt._per_leaf(
+        *(leaves(x) for x in (params, grads, state["m"], state["v"])),
+        opt._clip_scale(gnorm), opt.schedule(step), 1 - opt.b1 ** t,
+        1 - opt.b2 ** t)
+
+
+def _adamw_outputs(result):
+    from repro_torch.pytree import leaves
+    new_p, new_state, info = result
+    return (leaves(new_p), leaves(new_state["m"]), leaves(new_state["v"]),
+            [info["grad_norm"]])
+
+
+@pytest.mark.parametrize("clip", ["on", "off"])
+@pytest.mark.parametrize("step", [1, 2000])
+@pytest.mark.parametrize("lr_kind", ["float", "schedule"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_adamw_matches_per_leaf_on_card(cuda, dtype, lr_kind, step,
+                                              clip):
+    """One apply of the fused AdamW over leaves of 1, 7, 2,049 and 1,000,003
+    elements: one fused apply, one sumsq and one update launch a leaf and
+    one finalize, no host sync; the global norm within 1e-5 of the per-leaf
+    path's; the kernel's clip scale equal to the per-leaf expression's at
+    that norm, and p, m and v bit-equal to the per-leaf path's given it;
+    the inputs unchanged; a second call equal to the first bit for bit."""
+    import functools
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import schedules
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.pytree import leaves
+
+    sched = (lambda s: 3e-4) if lr_kind == "float" else functools.partial(
+        schedules.warmup_cosine, peak_lr=3e-4, warmup_steps=2000,
+        total_steps=100_000)
+    opt = AdamW(schedule=sched, clip_norm=1.0 if clip == "on" else 1e3)
+    params, grads, state = _adamw_tree(cuda, dtype)
+    state["step"].fill_(step - 1)
+    inputs = [x for tree in (params, grads, state["m"], state["v"])
+              for x in leaves(tree)]
+    before = [x.clone() for x in inputs]
+    torch.cuda.synchronize()
+    kadamw.reset_launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = opt.apply(params, grads, state)
+        counts = {e: kadamw.launch_count(e) for e in kadamw.ENTRIES}
+        paths = {p: kadamw.apply_count(p) for p in kadamw.PATHS}
+        second = opt.apply(params, grads, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = len(ADAMW_SIZES)
+    assert paths == {"fused": 1, "per_leaf": 0}
+    assert counts == {"sumsq": n, "finalize": 1, "update": n}
+    assert all(torch.equal(a, b) for a, b in zip(inputs, before))
+    for a, b in zip(_adamw_outputs(first), _adamw_outputs(second)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    gnorm = first[2]["grad_norm"]
+    want_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in leaves(grads)))
+    assert abs(float(gnorm) - float(want_norm)) <= 1e-5 * float(want_norm)
+    norm, scale = kadamw.global_norm(leaves(grads), opt.clip_norm)
+    assert torch.equal(norm, gnorm)
+    assert torch.equal(scale, opt._clip_scale(gnorm))
+    assert (float(scale) < 0.5) if clip == "on" else (float(scale) == 1.0)
+    want = _adamw_reference(opt, params, grads, state, gnorm)
+    for got_leaves, want_leaves in zip(_adamw_outputs(first), want):
+        for got, ref_ in zip(got_leaves, want_leaves):
+            assert got.dtype == ref_.dtype and got.shape == ref_.shape
+            assert torch.equal(got, ref_)
+    assert first[1]["step"].item() == step
+    if lr_kind == "float":
+        assert first[2]["lr"] == 3e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_adamw_unaligned_and_empty_leaves_on_card(cuda, dtype):
+    """Leaves that start one element past a 16-byte boundary take the
+    kernel's scalar loop, an empty leaf no launch; p, m and v still equal
+    the per-leaf path's bit for bit."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.pytree import leaves
+
+    params, grads, state = _adamw_tree(cuda, dtype, sizes=(2050, 1001, 0))
+    for tree in (params, grads, state["m"], state["v"]):
+        tree["l0"] = tree["l0"][1:]
+        assert tree["l0"].data_ptr() % 16 != 0
+    opt = AdamW(schedule=lambda s: 1e-3, clip_norm=0.1)
+    kadamw.reset_launch_count()
+    got = opt.apply(params, grads, state)
+    torch.cuda.synchronize()
+    assert kadamw.apply_count("fused") == 1
+    assert {e: kadamw.launch_count(e) for e in kadamw.ENTRIES} == {
+        "sumsq": 2, "finalize": 1, "update": 2}
+    want = _adamw_reference(opt, params, grads, state, got[2]["grad_norm"])
+    for got_leaves, want_leaves in zip(_adamw_outputs(got), want):
+        for a, b in zip(got_leaves, want_leaves):
+            assert torch.equal(a, b)
+    want_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in leaves(grads)))
+    assert abs(float(got[2]["grad_norm"]) - float(want_norm)) <= \
+        1e-5 * float(want_norm)
+
+
+def test_bf16_train_steps_take_the_fused_adamw_on_card(cuda):
+    """Three bf16 train steps of the smoke config on the card: each apply
+    takes the fused path (one sumsq and one update launch a leaf, one
+    finalize a step); the loss stays finite."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.pytree import leaves
+
+    cfg = dataclasses.replace(registry.smoke_config("olmoe_1b_7b"),
+                              dtype=torch.bfloat16, remat=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    opt = steps.default_optimizer(cfg)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, device=cuda)
+    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                        global_batch=2), device=cuda)
+    kadamw.reset_launch_count()
+    for i in range(3):
+        loss, params, state = step(params, state, stream.batch_at(i))
+    torch.cuda.synchronize()
+    n = len(leaves(params))
+    assert kadamw.apply_count("fused") == 3
+    assert kadamw.apply_count("per_leaf") == 0
+    assert {e: kadamw.launch_count(e) for e in kadamw.ENTRIES} == {
+        "sumsq": 3 * n, "finalize": 3, "update": 3 * n}
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("case", ["g_fp32_of_bf16", "p_fp16", "m_bf16"])
+def test_fused_adamw_refuses_rather_than_falls_back_on_card(cuda, case):
+    """A CUDA tree with a leaf the kernel does not take raises, naming the
+    leaf's fault; no per-leaf apply and no update launch is counted."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim.adamw import AdamW
+
+    params, grads, state = _adamw_tree(cuda, torch.bfloat16, sizes=(7, 2049))
+    if case == "g_fp32_of_bf16":
+        grads["l1"] = grads["l1"].float()
+    elif case == "p_fp16":
+        params["l0"], grads["l0"] = params["l0"].half(), grads["l0"].half()
+    else:
+        state["m"]["l1"] = state["m"]["l1"].bfloat16()
+    kadamw.reset_launch_count()
+    with pytest.raises(ValueError, match="dtype|float32"):
+        AdamW(schedule=lambda s: 1e-3).apply(params, grads, state)
+    assert kadamw.apply_count() == 0
+    assert kadamw.launch_count("update") == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_adamw_takes_non_contiguous_leaves_on_card(cuda, dtype):
+    """Transposed leaves take the fused path (copied contiguous first); p,
+    m and v equal the per-leaf path's bit for bit, the inputs unchanged."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.pytree import leaves
+
+    params, grads, state = _adamw_tree(cuda, dtype, sizes=(64 * 33, 7))
+    for tree in (params, grads, state["m"], state["v"]):
+        tree["l0"] = tree["l0"].view(64, 33).t()
+        assert not tree["l0"].is_contiguous()
+    before = [x.clone() for tree in (params, grads, state["m"], state["v"])
+              for x in leaves(tree)]
+    opt = AdamW(schedule=lambda s: 1e-3, clip_norm=0.1)
+    kadamw.reset_launch_count()
+    got = opt.apply(params, grads, state)
+    torch.cuda.synchronize()
+    assert kadamw.apply_count("fused") == 1
+    assert kadamw.apply_count("per_leaf") == 0
+    want = _adamw_reference(opt, params, grads, state, got[2]["grad_norm"])
+    for got_leaves, want_leaves in zip(_adamw_outputs(got), want):
+        for a, b in zip(got_leaves, want_leaves):
+            assert a.shape == b.shape and torch.equal(a, b)
+    after = [x for tree in (params, grads, state["m"], state["v"])
+             for x in leaves(tree)]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
