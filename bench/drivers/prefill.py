@@ -1,13 +1,18 @@
-"""Closed-loop prefill: one request at a time through the port's
-``launch.steps.make_prefill_step``, each with new seeded tokens (and, for
-a vision model, new standard-normal patch embeddings), each waited for
-before the next is sent.
+"""Back-to-back prefill: one request (a batch of the mix's ``batch``
+prompts) at a time through the port's ``launch.steps.make_prefill_step``,
+each with new seeded tokens (and, for a vision model, new standard-normal
+patch embeddings).  Requests are sent without waiting for the one before,
+so the card works through the launch queue while the host stalls; once
+the window's time is up nothing more is sent, every request sent is
+waited for, and the clock is read after that wait, so the rate covers all
+the work sent over all of its time.
 
 Every request's greedy token at every position (the argmax of its
 logits) is kept on the card.  After the window a sample of the finished
-requests, drawn from the seed, is run through the float32 reference, and
-the widest gap by which a served token's logit lies below the
-reference's best is compared with its limit.
+requests, drawn from the seed, is run through the float32 reference (the
+configuration's architecture module's ``Model``), and the widest gap by
+which a served token's logit lies below the reference's best is compared
+with its limit.
 """
 from __future__ import annotations
 
@@ -16,7 +21,6 @@ import time
 import torch
 
 from bench import models, traffic
-from bench.reference.lm import Model
 
 REQUEST_STREAM = 1000
 
@@ -60,9 +64,8 @@ def measure(run, st) -> dict:
         with run.span("inputs"):
             batch = request(run, cfg, len(served))
         with run.span("prefill_step"):
-            logits = step(params, batch)
-            served.append(logits.argmax(-1))
-            run.sync()
+            served.append(step(params, batch).argmax(-1))
+    run.sync()
     wall = time.perf_counter() - t0
     st["served"] = served
     n = len(served)
@@ -85,8 +88,9 @@ def gap(run, st, control: bool = False) -> float:
     tokens the fp8 reference puts first at the same inputs."""
     cfg, served = st["cfg"], st["served"]
     picks = traffic.sample(len(served), run.mix["check_requests"], run.seed)
-    ref = Model(run.config, st["params"])
-    low = Model(run.config, st["params"], matmul="fp8")
+    model = models.arch(run.config).Model
+    ref = model(run.config, st["params"])
+    low = model(run.config, st["params"], matmul="fp8")
     out = 0.0
     with torch.no_grad():
         for i in picks:

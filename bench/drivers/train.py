@@ -7,12 +7,13 @@ counter at ``start_step``: a job past its warm-up, where a step's update
 is larger than a bf16 parameter's rounding), and runs the first
 ``check_steps`` steps, which also warm every shape up.  The window takes
 that same state on from there.  After the window the float32 reference
-follows the first steps from the same weights and rows.  Three numbers
-are compared, each by the worst leaf and over the larger of the
-reference's norm of that leaf and of the median leaf: the gap between
-the norms of the first clipped gradient, the gap between the norms of
-the change the steps made, and the norm of the first clipped gradient's
-difference from the reference's.
+(the configuration's architecture module's ``Model`` under
+:mod:`bench.reference.train`) follows the first steps from the same
+weights and rows.  Three numbers are compared, each by the worst leaf
+and over the larger of the reference's norm of that leaf and of the
+median leaf: the gap between the norms of the first clipped gradient,
+the gap between the norms of the change the steps made, and the norm of
+the first clipped gradient's difference from the reference's.
 """
 from __future__ import annotations
 
@@ -118,7 +119,8 @@ def reference(run, st, matmul: str = "float32", judge=None) -> dict:
     params = models.make_weights(run.config, st["cfg"], run.seed, run.device)
     rows = [batch(run, st["cfg"], i) for i in range(run.mix["check_steps"])]
     return ref.steps(run.config, params, rows, run.mix["start_step"],
-                     matmul=matmul, judge=judge)
+                     model=models.arch(run.config).Model, matmul=matmul,
+                     judge=judge)
 
 
 def gap(run, st, control: bool = False) -> dict:

@@ -6,8 +6,11 @@ A cell is found by name.  ``BENCHMARK.json`` names its configuration and
 traffic mix; ``bench/configs/<config>.json`` holds the widths,
 ``bench/mixes/<traffic>.json`` the mix's parameters and the name of its
 driver, ``bench/drivers/<driver>.py``; each per-layer metric is read by
-``bench/metrics/<metric>.py``.  Adding a cell, a mix or a metric adds
-files and manifest entries; no file here names one.
+``bench/metrics/<metric>.py``.  A model's architecture is
+``bench/arch/<model_type>.py`` (:func:`bench.models.arch`), and the CPU
+tests' small sizes of a cell are ``bench/tiny/<workload>.json``.  Adding
+a cell, a mix, a metric or an architecture adds files and manifest
+entries; no file here names one.
 """
 from __future__ import annotations
 

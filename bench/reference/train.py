@@ -1,6 +1,7 @@
-"""Plain float32 reference of a training step: the causal-LM loss of
-:mod:`bench.reference.lm`'s model, its gradients by autograd, and AdamW
-with global-norm clipping, over the benchmark's weight tree.
+"""Plain float32 reference of a training step: the causal-LM loss of a
+reference model class that the caller passes (an architecture's ``Model``,
+such as :class:`bench.reference.lm.Model`), its gradients by autograd, and
+AdamW with global-norm clipping, over the benchmark's weight tree.
 
 It imports nothing of the program.  Each step computes in float32 from
 the parameters as stored, then stores them back in the configuration's
@@ -15,8 +16,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from bench.reference.lm import Model
 
 B1, B2, EPS, WD, CLIP = 0.9, 0.95, 1e-8, 0.1, 1.0
 PEAK_LR, WARMUP, TOTAL, MIN_RATIO = 3e-4, 2000, 100_000, 0.1
@@ -52,17 +51,20 @@ def build(paths: list, leaves: list) -> dict:
     return tree
 
 
-def loss_of(cfg: dict, tree: dict, batch: dict, matmul: str) -> torch.Tensor:
-    logits = Model(cfg, tree, matmul=matmul, remat=True).forward(
+def loss_of(model, cfg: dict, tree: dict, batch: dict, matmul: str
+            ) -> torch.Tensor:
+    """The mean next-token loss of the reference class ``model``."""
+    logits = model(cfg, tree, matmul=matmul, remat=True).forward(
         batch["tokens"])
     logp = torch.log_softmax(logits, -1)
     return -logp.gather(-1, batch["labels"].long()[..., None]).mean()
 
 
 def steps(cfg: dict, params: dict, batches: list, start_step: int, *,
-          matmul: str = "float32", judge: list | None = None) -> dict:
-    """Run one step a batch from ``params`` (bf16, as drawn) with the
-    optimizer's moments at 0 and its step counter at ``start_step``.
+          model, matmul: str = "float32", judge: list | None = None) -> dict:
+    """Run one step a batch of the reference class ``model`` from
+    ``params`` (bf16, as drawn) with the optimizer's moments at 0 and its
+    step counter at ``start_step``.
     Returns each step's loss, each leaf's norm of the clipped gradient of
     the first step (and the gradient itself, on the host), and each
     leaf's norm of its change over the steps, as stored (path order).
@@ -77,7 +79,7 @@ def steps(cfg: dict, params: dict, batches: list, start_step: int, *,
     losses, grad1 = [], None
     for k, batch in enumerate(batches):
         flat = [x.float().requires_grad_(True) for x in stored]
-        loss = loss_of(cfg, build(paths, flat), batch, matmul)
+        loss = loss_of(model, cfg, build(paths, flat), batch, matmul)
         grads = torch.autograd.grad(loss, flat)
         losses.append(float(loss.detach()))
         with torch.no_grad():

@@ -6,6 +6,7 @@ the program sound (``correct``), with faults planted underneath (not
 ``correct``)."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -85,6 +86,30 @@ def test_every_cell_resolves_to_its_files(cell):
                                      f"{m['name']}.py", f"t_{m['name']}")
         assert callable(reader.read)
     assert c.limits
+
+
+# the drivers that build the program from a configuration
+MODEL_DRIVERS = ("prefill", "train")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_its_files(cell):
+    """Besides its manifest entries, a cell brings its limits and its tiny
+    sizes, which lay over keys its configuration and mix have; a cell of a
+    model driver, its architecture's module, whose reference imports
+    nothing of the program."""
+    from bench import models
+    c = harness.resolve(cell)
+    assert (harness.BENCH / "limits" / f"{cell}.json").is_file()
+    t = tiny_file(cell)
+    assert {"config", "mix", "ticks"} <= set(t)
+    assert set(t["config"]) <= set(c.config) and set(t["mix"]) <= set(c.mix)
+    if c.mix["driver"] in MODEL_DRIVERS:
+        kind = c.config["model_type"]
+        assert (harness.BENCH / "arch" / f"{kind}.py").is_file()
+        arch = models.arch(c.config)
+        assert callable(arch.program_config) and callable(arch.is_norm_leaf)
+        assert arch.Model.__module__.startswith("bench.reference.")
 
 
 def test_every_config_and_metric_is_used():
@@ -185,39 +210,27 @@ def test_traffic_gives_every_seed_the_same_work():
 
 # -- the cells, end to end at a small size on the CPU ---------------------------
 
-# deep and wide enough for the fp8 control's logit gaps to reach the
-# cells' limits (the gap grows with depth and vocabulary); bf16 as served
-# where the CPU keeps up
-TINY_LM = {"hidden_size": 128, "intermediate_size": 256,
-           "num_hidden_layers": 16, "num_attention_heads": 4,
-           "num_key_value_heads": 4, "vocab_size": 4096,
-           "torch_dtype": "bfloat16"}
-TINY_MIX = {"olmoe-route": {"rate_per_s": 40.0, "warmup_placements": 2},
-            "phi3v-prefill": {"seq_len": 128, "check_requests": 2},
-            "olmoe-train": {"batch": 2, "seq_len": 40}}
-TINY_CFG = {"phi3v-prefill": {"num_patches": 8},
-            "olmoe-train": {"num_experts": 8, "num_experts_per_tok": 2,
-                            "hidden_size": 64, "intermediate_size": 64,
-                            "num_hidden_layers": 2, "vocab_size": 512,
-                            "torch_dtype": "float32"}}
+def tiny_file(cell: str) -> dict:
+    """``bench/tiny/<cell>.json``: the keys laid over the cell's
+    configuration (a group merged into the configuration's group), over its
+    mix, and the ticks of its window (null: the wall's clock)."""
+    return harness.load_json(harness.BENCH / "tiny" / f"{cell}.json")
 
 
 def tiny(cell: str) -> harness.Cell:
     c = harness.resolve(cell)
+    t = tiny_file(cell)
     config = dict(c.config)
-    if "program" in config:
-        config.update(TINY_LM, **TINY_CFG.get(cell, {}))
-        config["program"] = {**config["program"], "attn_impl": "xla"}
-    return dataclasses.replace(c, config=config,
-                               mix={**c.mix, **TINY_MIX[cell]})
+    for key, value in t["config"].items():
+        if isinstance(value, dict) and isinstance(config.get(key), dict):
+            value = {**config[key], **value}
+        config[key] = value
+    return dataclasses.replace(c, config=config, mix={**c.mix, **t["mix"]})
 
 
-# loop iterations of a model cell's window: its driver reads a clock that
-# advances a fixed tick a reading, so the work is the same however loaded
-# the host is
-TICKS = {"phi3v-prefill": 6, "olmoe-train": 4}
-
-
+# a model cell's window runs a fixed number of loop iterations: its driver
+# reads a clock that advances a fixed tick a reading (the tiny file's
+# ``ticks`` to the window), so the work is the same however loaded the host
 class TickClock:
     def __init__(self, tick: float):
         self.now, self.tick = 0.0, tick
@@ -229,8 +242,9 @@ class TickClock:
 
 def drive(cell: harness.Cell, seconds: float = 0.5,
           seed: int = 2**32 + 11, trace: bool = False) -> tuple:
-    if cell.name in TICKS:
-        cell.driver.time = TickClock(seconds / TICKS[cell.name])
+    ticks = tiny_file(cell.name)["ticks"]
+    if ticks:
+        cell.driver.time = TickClock(seconds / ticks)
     run = harness.Run(cell, seed=seed, seconds=seconds, trace=trace,
                       device=CPU)
     st = cell.driver.setup(run)
@@ -245,10 +259,29 @@ def checked(cell: harness.Cell, **kw) -> harness.Run:
     return run
 
 
+@pytest.fixture(scope="module")
+def sound():
+    """Each cell's sound tiny drive, made on its first use and kept for the
+    module.  A call gives the cell, a copy of the run (checks and counters
+    its own), a copy of the driver's state (a check that takes from it, as
+    the train driver's does, leaves the next caller's whole) and the
+    end-to-end values."""
+    made = {}
+
+    def get(cell: str) -> tuple:
+        if cell not in made:
+            c = tiny(cell)
+            made[cell] = (c, *drive(c))
+        c, run, st, e2e = made[cell]
+        mine = copy.copy(run)
+        mine.checks, mine.counters = list(run.checks), dict(run.counters)
+        return c, mine, dict(st), e2e
+    return get
+
+
 @pytest.mark.parametrize("cell", CELLS)
-def test_a_sound_run_is_correct(cell):
-    c = tiny(cell)
-    run, st, e2e = drive(c)
+def test_a_sound_run_is_correct(cell, sound):
+    c, run, st, e2e = sound(cell)
     assert set(e2e) == {m["name"] for m in c.end_to_end} - {"setup_s"}
     assert all(v > 0 for v in e2e.values())
     c.driver.check(run, st)
@@ -272,11 +305,10 @@ def test_a_traced_run_reads_its_window():
     assert run.trace.breakdown()["device_ops"] == []
 
 
-def test_route_reference_equals_the_port_bit_for_bit():
+def test_route_reference_equals_the_port_bit_for_bit(sound):
     """Placements, paths, bounds, backlogs and final queues of the port
     equal the NumPy reference's, and the bf16 reference differs."""
-    c = tiny("olmoe-route")
-    run, st, _ = drive(c)
+    c, run, st, _ = sound("olmoe-route")
     assert run.counters["placements"] >= 10
     assert c.driver.gap(run, st) == 0
     assert c.driver.gap(run, st, control=True) > c.limits[
@@ -343,9 +375,8 @@ def test_train_fault_half_the_batch_left_out(monkeypatch):
 
 
 @pytest.mark.parametrize("cell", CELLS)
-def test_the_control_is_not_correct(cell):
-    c = tiny(cell)
-    run, st, _ = drive(c)
+def test_the_control_is_not_correct(cell, sound):
+    c, run, st, _ = sound(cell)
     got = c.driver.gap(run, st, control=True)
     got = got if isinstance(got, dict) else {None: got}
     limits = list(c.limits.values())
