@@ -90,10 +90,13 @@ def _sync(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(cfg, *, device: str | torch.device = "cuda"):
+    """``prefill_step(params, batch) -> logits`` without autograd; a call
+    is the span ``steps.prefill`` (its request id the call's index)."""
     dev = resolve_device(device)
+    calls = itertools.count()
 
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with tracing.span("steps.prefill", next(calls)), torch.no_grad():
             return M.prefill_logits(cfg, params, _on(dev, batch))
 
     return prefill_step

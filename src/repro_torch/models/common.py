@@ -45,6 +45,20 @@ FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
 gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
 
+def setting(cfg, name: str):
+    """``cfg``'s value of a port-only setting
+    (:class:`repro_torch.models.model.PortConfig`); a plain
+    ``ModelConfig`` has none and reads the default, which gives its
+    behaviour."""
+    from .model import PortConfig       # model imports this module
+    return getattr(cfg, name, getattr(PortConfig, name))
+
+
+def experts_held(cfg) -> int:
+    """How many experts a layer of ``cfg`` holds (all, unless told)."""
+    return setting(cfg, "moe_experts_held") or cfg.moe_num_experts
+
+
 # the products without batch dimensions that the "dots" policy keeps
 DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -199,11 +213,57 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exponent)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 for a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(dim: int, theta: float,
+               original_max: int) -> tuple[int, int]:
+    """The frequency indices between which YaRN ramps from the original
+    frequencies (below ``low``) to the interpolated ones (above
+    ``high``): where a dimension turns 32 and 1 times over
+    ``original_max`` positions (the published beta_fast and beta_slow,
+    which the port fixes)."""
+    def dim_of(rotations):
+        return (dim * math.log(original_max / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim_of(32)), 0),
+            min(math.ceil(dim_of(1)), dim - 1))
+
+
+def rope_inv_freq(cfg, dim: int, device=None) -> torch.Tensor:
+    """The [dim/2] float32 inverse frequencies of ``cfg``'s rotary
+    embedding over ``dim`` dimensions: plain, or YaRN's where the config
+    sets ``rope_yarn_factor`` (:class:`repro_torch.models.model.PortConfig`;
+    the published ``DeepseekV2YarnRotaryEmbedding``'s arithmetic)."""
+    extra = rope_freqs(dim, cfg.rope_theta, device)
+    factor = setting(cfg, "rope_yarn_factor")
+    if not factor:
+        return extra
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32,
+                            device=device) / dim
+    inter = 1.0 / (factor * cfg.rope_theta ** exponent)
+    low, high = yarn_range(dim, cfg.rope_theta,
+                           setting(cfg, "rope_yarn_original_max"))
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
+               theta: float = 1e4, *,
+               inv_freq: torch.Tensor | None = None) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S].
+    ``inv_freq`` [hd/2] replaces the plain frequencies of ``theta``."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    freqs = rope_freqs(hd, theta, x.device) if inv_freq is None \
+        else inv_freq                                         # [hd/2]
     ang = positions[..., :, None, None].float() * freqs       # [..., S,1,hd/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

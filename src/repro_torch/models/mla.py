@@ -13,6 +13,11 @@ form: queries are pulled into the latent space (q_eff = q_nope @ W_uk per
 head) so attention runs against the cached latents -- the cache is
 [B, T, kv_lora + rope_dim] whatever the head count.
 
+With the port's YaRN settings (:class:`repro_torch.models.model.PortConfig`)
+the rope dimensions take YaRN's frequencies, and every
+form scales the softmax by :func:`softmax_scale`.  A call is the span
+``mla.attention`` (:mod:`repro_torch.tracing`).
+
 As in the port's dense attention, decode writes the cache **in place**
 and returns that same dict (the reference returns an updated copy).
 """
@@ -21,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch import tracing
 
 from . import common as cm
 
@@ -97,16 +104,34 @@ def write_latents(kv_cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor,
     return kv_cache
 
 
+def softmax_scale(cfg) -> float:
+    """1/sqrt(qk_nope + qk_rope), times YaRN's mscale(factor,
+    mscale_all_dim)^2 where the config sets YaRN and ``mscale_all_dim``."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    factor = cm.setting(cfg, "rope_yarn_factor")
+    all_dim = cm.setting(cfg, "rope_yarn_mscale_all_dim")
+    if factor and all_dim:
+        scale *= cm.yarn_mscale(factor, all_dim) ** 2
+    return scale
+
+
 def mla_attention(p, x, positions, cfg, *, kv_cache=None, cache_pos=None):
+    with tracing.span("mla.attention"):
+        return _mla_attention(p, x, positions, cfg, kv_cache, cache_pos)
+
+
+def _mla_attention(p, x, positions, cfg, kv_cache, cache_pos):
     b, s, _ = x.shape
     h, qk, qr, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
-    scale = 1.0 / math.sqrt(qk + qr)
+    scale = softmax_scale(cfg)
+    inv_freq = cm.rope_inv_freq(cfg, qr, x.device)
     q_nope, q_rope = _queries(p, x, cfg)
-    q_rope = cm.apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = cm.apply_rope(q_rope, positions, cfg.rope_theta,
+                           inv_freq=inv_freq)
     c_kv, k_rope = _latents(p, x, cfg)
-    k_rope = cm.apply_rope(k_rope[:, :, None], positions,
-                           cfg.rope_theta)[:, :, 0]
+    k_rope = cm.apply_rope(k_rope[:, :, None], positions, cfg.rope_theta,
+                           inv_freq=inv_freq)[:, :, 0]
 
     if kv_cache is None:
         # -- materialized form (prefill)

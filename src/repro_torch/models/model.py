@@ -110,6 +110,70 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
 
+@dataclasses.dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A :class:`ModelConfig` with the port's own settings, which the
+    reference's config has no field for (DeepSeek-V2's published block).
+    Every default gives a plain ``ModelConfig``'s behaviour, and the code
+    reads each through :func:`repro_torch.models.common.setting`, so a
+    plain ``ModelConfig`` runs as it did.
+
+    * Experts held: the layer routes over all ``moe_num_experts`` and
+      holds experts ``[moe_expert_first, moe_expert_first +
+      moe_experts_held)`` (0: all), computing only their part of the
+      result; a choice of an expert it does not hold is dropped.  On one
+      card there is no exchange with the chips that hold the others.
+    * Group-limited greedy routing: the softmax's experts in
+      ``moe_n_group`` equal groups, each scored by its best probability;
+      the top ``moe_topk_group`` groups kept, the top-k taken in them.
+    * ``moe_norm_topk``: top-k weights renormalised to sum 1; else times
+      ``moe_routed_scale`` (one or the other, as published).
+    * ``first_dense_layers`` leading blocks with a dense MLP of width
+      ``dense_d_ff`` (0: ``d_ff``) before the expert blocks, counted in
+      ``num_layers``.
+    * YaRN rotary embedding on MLA's rope dimensions where
+      ``rope_yarn_factor`` > 0 (arXiv:2309.00071, as DeepSeek-V2's
+      ``modeling_deepseek.py``): frequencies interpolated by the factor
+      below 1 rotation over ``rope_yarn_original_max`` positions and kept
+      above 32 (the published beta_slow and beta_fast), the softmax scale
+      times mscale(``rope_yarn_mscale_all_dim``)^2.  The port takes
+      YaRN's mscale equal to ``mscale_all_dim``, as published, so cos and
+      sin keep a factor of 1.
+    """
+
+    moe_expert_first: int = 0
+    moe_experts_held: int = 0
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    moe_norm_topk: bool = True
+    moe_routed_scale: float = 1.0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    rope_yarn_factor: float = 0.0
+    rope_yarn_original_max: int = 4096
+    rope_yarn_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        e = self.moe_num_experts
+        if self.moe_expert_first < 0 or (e and self.moe_expert_first
+                                         + cm.experts_held(self) > e):
+            raise ValueError(f"experts held [{self.moe_expert_first}, +"
+                             f"{self.moe_experts_held}) outside {e}")
+        if e and (e % self.moe_n_group
+                  or not 1 <= self.moe_topk_group <= self.moe_n_group):
+            raise ValueError(f"{self.moe_topk_group} of {self.moe_n_group} "
+                             f"groups over {e} experts")
+        if self.moe_norm_topk and self.moe_routed_scale != 1.0:
+            raise ValueError("the routed scale applies to unnormalised "
+                             "top-k weights only")
+        if not 0 <= self.first_dense_layers <= self.num_layers:
+            raise ValueError(f"{self.first_dense_layers} dense layers of "
+                             f"{self.num_layers}")
+        if self.rope_yarn_factor and not self.use_mla:
+            raise ValueError("YaRN rotary is read by MLA only")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random params drawn from ``generator`` (a CPU generator; the same

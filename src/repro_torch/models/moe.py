@@ -12,7 +12,18 @@ the inverse of the sort and sums over k: no scatter-add, so no atomics and
 a fixed summation order on every device.  Top-k breaks ties toward the
 lower expert index, as ``jax.lax.top_k`` does (a stable descending sort).
 
-Shared experts (deepseek-v2) run densely on every token.  The reference's
+Shared experts (deepseek-v2) run densely on every token.  The port's own
+settings (:class:`repro_torch.models.model.PortConfig`, read through
+:func:`repro_torch.models.common.setting`) add DeepSeek-V2's published
+layer: group-limited greedy routing, top-k weights left unnormalised and
+scaled, and a layer told which experts it holds -- it routes over all of
+them, keeps the choices of its own, and computes their part of the
+result (a chip's share under expert parallelism; on one card there is no
+exchange).  At their defaults the path launches the same kernels as a
+plain ``ModelConfig``'s.  Spans (:mod:`repro_torch.tracing`):
+``moe.route`` (router, group selection, dispatch into the buffer),
+``moe.experts`` (the held experts' products and the combine),
+``moe.shared``.  The reference's
 mesh paths (``moe_local_dispatch``: the dispatch per data shard under
 ``shard_map``; ``moe_ep_shard``: experts sharded over 'model') have no
 one-card meaning: on one card both flags run this global dispatch, which
@@ -25,6 +36,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import tracing
 
 from . import common as cm
 
@@ -40,12 +53,15 @@ def _experts(gen: torch.Generator, n: int, in_dim: int, out_dim: int,
 
 
 def init_moe(gen: torch.Generator, cfg, device: torch.device) -> dict:
+    """The router over all ``moe_num_experts``; the weights of the
+    experts held ([held, ...])."""
     e, d, f = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff
+    held = cm.experts_held(cfg)
     p = {
         "router": cm.dense_init(gen, d, e, torch.float32).to(device),
-        "w_gate": _experts(gen, e, d, f, cfg.dtype, device),    # [E, D, F]
-        "w_up": _experts(gen, e, d, f, cfg.dtype, device),      # [E, D, F]
-        "w_down": _experts(gen, e, f, d, cfg.dtype, device),    # [E, F, D]
+        "w_gate": _experts(gen, held, d, f, cfg.dtype, device),  # [E, D, F]
+        "w_up": _experts(gen, held, d, f, cfg.dtype, device),    # [E, D, F]
+        "w_down": _experts(gen, held, f, d, cfg.dtype, device),  # [E, F, D]
     }
     if cfg.moe_num_shared > 0:
         p["shared"] = cm.to_device(cm.init_mlp(
@@ -63,7 +79,9 @@ def _ranks_in_expert(sorted_e: torch.Tensor) -> torch.Tensor:
 
 
 def capacity(cfg, n: int) -> int:
-    """Slots per expert for ``n`` tokens: ``int(cf * n * k / E) + 1``, and
+    """Slots per expert for ``n`` tokens: ``int(cf * n * k / E) + 1``, E
+    the experts routed over (held or not: each held expert gets the slots
+    it would get in the deployment), and
     ``n`` for decode-sized batches (n <= 64), where every token is
     guaranteed its slots so single-token routing matches prefill."""
     if n <= 64:
@@ -73,25 +91,54 @@ def capacity(cfg, n: int) -> int:
 
 
 def route(p, xf: torch.Tensor, cfg):
-    """Router of [N, D] tokens: (top-k weights [N, k] float32, normalised;
-    top-k expert ids [N, k]; router probabilities [N, E] float32)."""
+    """Router of [N, D] tokens: (top-k weights [N, k] float32; top-k
+    expert ids [N, k]; router probabilities [N, E] float32).
+
+    With ``moe_n_group`` > 1 the top-k is taken among the experts of the
+    ``moe_topk_group`` groups whose best probability is highest (ties to
+    the lower group, then the lower expert).  The weights are the
+    probabilities, renormalised to sum 1 where ``moe_norm_topk``, else
+    times ``moe_routed_scale``."""
+    k = cfg.moe_top_k
     probs = torch.softmax(xf.float() @ p["router"], dim=-1)     # [N, E]
-    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[:, :cfg.moe_top_k], top_e[:, :cfg.moe_top_k]
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    groups = cm.setting(cfg, "moe_n_group")
+    kept = cm.setting(cfg, "moe_topk_group")
+    scores = probs
+    if kept < groups:
+        best = probs.reshape(probs.shape[0], groups, -1).amax(-1)
+        top_g = torch.sort(best, dim=-1, descending=True,
+                           stable=True)[1][:, :kept]
+        mask = torch.zeros_like(best, dtype=torch.bool).scatter_(1, top_g,
+                                                                 True)
+        scores = probs.masked_fill(
+            ~mask.repeat_interleave(probs.shape[1] // groups, dim=1), 0.0)
+    top_w, top_e = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    if cm.setting(cfg, "moe_norm_topk"):
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    else:
+        top_w = top_w * cm.setting(cfg, "moe_routed_scale")
     return top_w, top_e, probs
 
 
 def dispatch(top_e: torch.Tensor, cfg, n: int):
     """The sort-based dispatch of the [N, k] choices: (order [N*k], the
-    stable argsort of the flat expert ids; slot [N*k] in [0, E*C), the
-    buffer row of each sorted pair; keep [N*k], whether it fits)."""
-    e, cap = cfg.moe_num_experts, capacity(cfg, n)
+    stable argsort of the flat expert ids; slot [N*k] in [0, held*C), the
+    buffer row of each sorted pair; keep [N*k], whether it is an expert
+    held here and fits)."""
+    e, cap = cm.experts_held(cfg), capacity(cfg, n)
     flat_e = top_e.reshape(-1)
+    if e < cfg.moe_num_experts:
+        # local ids; every choice of an expert not held sorts last, as e
+        first = cm.setting(cfg, "moe_expert_first")
+        flat_e = flat_e - first
+        flat_e = torch.where((flat_e >= 0) & (flat_e < e), flat_e, e)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     ranks = _ranks_in_expert(sorted_e)
     keep = ranks < cap
+    if e < cfg.moe_num_experts:
+        keep &= sorted_e < e
     slot = torch.where(keep, sorted_e * cap + ranks, e * cap)  # overflow bin
     return order, slot, keep
 
@@ -99,32 +146,35 @@ def dispatch(top_e: torch.Tensor, cfg, n: int):
 def moe_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]."""
     b, s, d = x.shape
-    n, e, k = b * s, cfg.moe_num_experts, cfg.moe_top_k
+    n, e, k = b * s, cm.experts_held(cfg), cfg.moe_top_k
     cap = capacity(cfg, n)
     xf = x.reshape(n, d)
-    top_w, top_e, _ = route(p, xf, cfg)
-    order, slot, keep = dispatch(top_e, cfg, n)
-    tok = order // k                                   # token of each pair
+    with tracing.span("moe.route"):
+        top_w, top_e, _ = route(p, xf, cfg)
+        order, slot, keep = dispatch(top_e, cfg, n)
+        tok = order // k                               # token of each pair
 
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = xf[tok[keep]]                    # rows are distinct
-    buf = buf.reshape(e, cap, d)
-    if cfg.moe_ep_shard:
-        buf = cm.maybe_shard(buf, "model", None, None)   # EP over experts
-    gate = F.silu(torch.bmm(buf, p["w_gate"]))
-    up = torch.bmm(buf, p["w_up"])
-    out = torch.bmm(gate * up, p["w_down"])            # [E, C, D]
-    if cfg.moe_ep_shard:
-        out = cm.maybe_shard(out, "model", None, None)
-    out = out.reshape(e * cap, d)
+        buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
+        buf[slot[keep]] = xf[tok[keep]]                # rows are distinct
+        buf = buf.reshape(e, cap, d)
+    with tracing.span("moe.experts"):
+        if cfg.moe_ep_shard:
+            buf = cm.maybe_shard(buf, "model", None, None)  # EP over experts
+        gate = F.silu(torch.bmm(buf, p["w_gate"]))
+        up = torch.bmm(buf, p["w_up"])
+        out = torch.bmm(gate * up, p["w_down"])        # [E, C, D]
+        if cfg.moe_ep_shard:
+            out = cm.maybe_shard(out, "model", None, None)
+        out = out.reshape(e * cap, d)
 
-    rows = torch.where(keep[:, None], out[torch.clamp(slot, max=e * cap - 1)],
-                       0)
-    w_sorted = top_w.reshape(-1)[order].to(x.dtype)
-    contrib = rows * w_sorted[:, None]                 # [N*k, D], sorted
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n * k, device=x.device)
-    y = contrib[inv].reshape(n, k, d).sum(1)           # fixed order, no atomics
+        rows = torch.where(keep[:, None],
+                           out[torch.clamp(slot, max=e * cap - 1)], 0)
+        w_sorted = top_w.reshape(-1)[order].to(x.dtype)
+        contrib = rows * w_sorted[:, None]             # [N*k, D], sorted
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n * k, device=x.device)
+        y = contrib[inv].reshape(n, k, d).sum(1)       # fixed order, no atomics
     if "shared" in p:
-        y = y + cm.mlp(p["shared"], xf)
+        with tracing.span("moe.shared"):
+            y = y + cm.mlp(p["shared"], xf)
     return y.reshape(b, s, d)

@@ -9,7 +9,11 @@ shared + routed experts (olmoe-1b-7b, deepseek-v2-236b;
 
 Blocks are stacked ``[L, ...]`` as in the reference; the reference scans
 them, the port loops over layer views (``scan_layers`` computes the same
-function either way).  The KV cache (the latent cache for MLA) is updated
+function either way).  A :class:`repro_torch.models.model.PortConfig`
+with ``first_dense_layers`` puts that many blocks with a dense MLP
+(``params["dense_blocks"]``, stacked the same way) before the expert
+blocks; ``num_layers`` counts both, and the cache keeps one entry per
+layer, the dense ones first.  The KV cache (the latent cache for MLA) is updated
 **in place**: the reference's ``decode_step`` returns an updated copy, the
 port writes into the cache it is given and returns that same dict.
 """
@@ -22,9 +26,11 @@ from .mla import init_mla, init_mla_cache, mla_attention
 from .moe import init_moe, moe_block
 
 
-def _block_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
+def _block_init(gen: torch.Generator, cfg, device: torch.device,
+                dense: bool = False) -> dict:
     """One block's params, each weight drawn on the CPU and moved to
-    ``device`` as it is drawn."""
+    ``device`` as it is drawn; ``dense``: a leading dense block of an
+    expert model (MLP width ``dense_d_ff``)."""
     p = {}
     if cfg.use_mla:
         p["attn"] = init_mla(gen, cfg, device)
@@ -36,10 +42,11 @@ def _block_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
                             device)
     p["ln2"] = cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
                             device)
-    if cfg.moe_num_experts > 0:
+    if cfg.moe_num_experts > 0 and not dense:
         p["moe"] = init_moe(gen, cfg, device)
     else:
-        p["mlp"] = cm.to_device(cm.init_mlp(gen, cfg.d_model, cfg.d_ff,
+        width = (cm.setting(cfg, "dense_d_ff") if dense else 0) or cfg.d_ff
+        p["mlp"] = cm.to_device(cm.init_mlp(gen, cfg.d_model, width,
                                             cfg.dtype), device)
     return p
 
@@ -48,16 +55,19 @@ def init(gen: torch.Generator, cfg, device: torch.device) -> dict:
     """Random params drawn from ``gen`` on the CPU, weight by weight, each
     moved to ``device`` as it is drawn, so a seed gives the same weights
     on every device and host memory holds one weight at a time."""
-    blocks = cm.stack_layers(cfg.num_layers,
-                             lambda: _block_init(gen, cfg, device))
+    out = {}
+    n_dense = cm.setting(cfg, "first_dense_layers")
+    if n_dense:
+        out["dense_blocks"] = cm.stack_layers(
+            n_dense, lambda: _block_init(gen, cfg, device, dense=True))
+    out["blocks"] = cm.stack_layers(cfg.num_layers - n_dense,
+                                    lambda: _block_init(gen, cfg, device))
     embed = cm.init_embed(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype,
                           tie=cfg.tie_embeddings)
-    return {
-        "blocks": blocks,
-        "embed": cm.to_device(embed, device),
-        "ln_f": cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
-                             device),
-    }
+    out["embed"] = cm.to_device(embed, device)
+    out["ln_f"] = cm.to_device(cm.init_norm(cfg.d_model, cfg.norm, cfg.dtype),
+                               device)
+    return out
 
 
 def _layer_windows(cfg) -> list[int]:
@@ -67,6 +77,17 @@ def _layer_windows(cfg) -> list[int]:
     # gemma3: (pattern-1) local layers then 1 global, repeating
     return [0 if i % cfg.local_global_pattern == cfg.local_global_pattern - 1
             else cfg.sliding_window for i in range(cfg.num_layers)]
+
+
+def _layers(cfg, params):
+    """Every layer's (params view, attention window) in order: the
+    leading dense blocks, then the stacked blocks."""
+    n_dense = cm.setting(cfg, "first_dense_layers")
+    windows = _layer_windows(cfg)
+    for i in range(n_dense):
+        yield cm.layer(params["dense_blocks"], i), windows[i]
+    for i in range(cfg.num_layers - n_dense):
+        yield cm.layer(params["blocks"], i), windows[n_dense + i]
 
 
 def _block_apply(cfg, p, h, positions, window, kv_cache=None, cache_pos=None):
@@ -87,7 +108,7 @@ def _block_apply(cfg, p, h, positions, window, kv_cache=None, cache_pos=None):
             attn_impl=cfg.attn_impl, grouped=cfg.gqa_grouped)
     h = h + attn_out
     x = cm.apply_norm(p["ln2"], h, cfg.norm)
-    if cfg.moe_num_experts > 0:
+    if "moe" in p:
         return h + moe_block(p["moe"], x, cfg), new_cache
     return h + cm.mlp(p["mlp"], x), new_cache
 
@@ -152,8 +173,8 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 
     if remat and torch.is_grad_enabled():
         block = cm.remat_wrap(block, cfg)
-    for i, window in enumerate(_layer_windows(cfg)):
-        h = block(h, cm.layer(params["blocks"], i), window)
+    for p, window in _layers(cfg, params):
+        h = block(h, p, window)
     h = cm.apply_norm(params["ln_f"], h, cfg.norm)[:, n_extra:]
     return cm.unembed(params["embed"], h).float()
 
@@ -176,9 +197,8 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos: int):
     h = cm.embed(params["embed"], tokens).to(cfg.dtype)
     h = cm.maybe_shard(h, cfg.dp_axes, None, None)
     positions = torch.full((1, 1), pos, dtype=torch.long, device=h.device)
-    for i, window in enumerate(_layer_windows(cfg)):
-        h, _ = _block_apply(cfg, cm.layer(params["blocks"], i), h, positions,
-                            window, kv_cache=cm.layer(cache, i),
-                            cache_pos=pos)
+    for i, (p, window) in enumerate(_layers(cfg, params)):
+        h, _ = _block_apply(cfg, p, h, positions, window,
+                            kv_cache=cm.layer(cache, i), cache_pos=pos)
     h = cm.apply_norm(params["ln_f"], h, cfg.norm)
     return cm.unembed(params["embed"], h[:, -1]).float(), cache
